@@ -5,13 +5,13 @@ Imports torch and numpy only (never jax or mujoco_sim_tpu).  Typical use::
 
     import torch
     import mujoco_sim_tpu_torch as mst
-    m = mst.put_model(mst.load_model("scene.xml"), torch.float32, "cuda")
+    m = mst.put_model(mst.load_model("scene.xml"))     # float32, on the card
     d = mst.make_data(m, nenv=4096)
     d = mst.rollout(m, d, nsteps=1000)
 """
 
 from mujoco_sim_tpu_torch.engine import (  # noqa: F401
-    put_model, make_data, forward, step, set_const,
+    put_model, make_data, forward, step, step_with_control, set_const,
 )
 from mujoco_sim_tpu_torch.models.compile import load_model  # noqa: F401
 from mujoco_sim_tpu_torch.models.model import Model, Data  # noqa: F401

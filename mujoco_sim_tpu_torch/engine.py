@@ -13,8 +13,8 @@ tensors: the path is chosen by device, not by a switch.  With the kernel,
 materialized), as on the JAX package's TPU path.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-actuators, tendons, sensors, equality rows, the elliptic cone, noslip,
-RK4 and the implicit integrators.
+site and tendon transmissions, tendons, sensors, equality rows,
+heightfields, the elliptic cone, noslip, RK4 and the implicit integrators.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from mujoco_sim_tpu_torch.models.model import (
-    Model, Data, Contact, Integrator, DisableBit, JointType,
+    Model, Data, Contact, Integrator, DisableBit, JointType, DynType,
+    GainType, BiasType, TrnType,
 )
 from mujoco_sim_tpu_torch.ops import chol, smooth, support
 from mujoco_sim_tpu_torch.ops import passive as passive_mod
@@ -41,8 +42,10 @@ def _true_f32_matmuls():
     torch.set_float32_matmul_precision("highest")
 
 
-def put_model(m: Model, dtype=torch.float32, device="cpu") -> Model:
-    """Cast float leaves to ``dtype`` and move every leaf to ``device``.
+def put_model(m: Model, dtype=torch.float32, device="cuda") -> Model:
+    """Cast float leaves to ``dtype`` and move every leaf to ``device``
+    (the card unless the caller names another; without a CUDA device the
+    default raises, it never carries on on the CPU by itself).
 
     Integer leaves become torch.long, bool leaves stay bool.  The Layout's
     index arrays are moved to the device once (``Layout.to``), so the step
@@ -51,6 +54,10 @@ def put_model(m: Model, dtype=torch.float32, device="cpu") -> Model:
     """
     device = torch.device(device)
     if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "put_model: no CUDA device; pass device=\"cpu\" to run on "
+                "the CPU")
         _true_f32_matmuls()
 
     def cast(x):
@@ -152,10 +159,7 @@ def set_const(m: Model) -> Model:
     if m.ntendon:
         raise NotImplementedError(
             "tendon constants are not ported yet (ROADMAP §A.7)")
-    if m.nu:
-        raise NotImplementedError(
-            "actuator constants are not ported yet (ROADMAP §A.7, "
-            "actuation)")
+    _check_transmissions(m)
     mt = put_model(m, torch.float64, "cpu")
     qpos0 = mt.qpos0[None]
     kin = smooth.kinematics(mt, qpos0)
@@ -177,8 +181,24 @@ def set_const(m: Model) -> Model:
     At = torch.einsum("biv,vw,biw->b", Jt, Minv, Jt) / 3.0
     Ar = torch.einsum("biv,vw,biw->b", Jr, Minv, Jr) / 3.0
     body_invweight0 = torch.stack([At, Ar], dim=-1)
+    # actuator_acc0 = |M^-1 moment| at qpos0 (joint transmissions: the
+    # static 0/1 dof mask scaled by gear[0])
+    mom = (torch.as_tensor(m.layout.act_moment01, dtype=torch.float64)
+           * mt.actuator_gear[:, :1])
+    acc0 = torch.linalg.norm(mom @ Minv, dim=-1)
     return m.replace(dof_invweight0=dof_invweight0.numpy(),
-                     body_invweight0=body_invweight0.numpy())
+                     body_invweight0=body_invweight0.numpy(),
+                     actuator_acc0=acc0.numpy())
+
+
+def _check_transmissions(m: Model):
+    trn = m.layout.act_trntype
+    if (trn == int(TrnType.SITE)).any():
+        raise NotImplementedError(
+            "site transmissions are not ported yet (ROADMAP §A.7)")
+    if (trn == int(TrnType.TENDON)).any():
+        raise NotImplementedError(
+            "tendon transmissions are not ported yet (ROADMAP §A.7)")
 
 
 def _com_dict(m: Model, d: Data) -> dict:
@@ -241,12 +261,162 @@ def _cinert(m: Model, d: Data):
                               d.xipos - origin)
 
 
+def _actuation_plan_np(m: Model):
+    lay = m.layout
+    dyn, gt, bt = lay.act_dyntype, lay.act_gaintype, lay.act_biastype
+    ball = np.nonzero(
+        (lay.act_trntype == int(TrnType.JOINT)) & (lay.act_trnjnt >= 0)
+        & (lay.jnt_type[np.maximum(lay.act_trnjnt, 0)]
+           == int(JointType.BALL)))[0]
+    return dict(
+        moment01=np.asarray(lay.act_moment01, np.float64),
+        g0eff=np.asarray(lay.act_gear0_eff, np.float64),
+        len_valid=np.asarray(lay.act_len_valid, np.float64),
+        qposadr=np.asarray(lay.act_qposadr, np.int64),
+        ball_rows=ball.astype(np.int64),
+        ball_qadr=(lay.act_qposadr[ball][:, None]
+                   + np.arange(4)).astype(np.int64),
+        ctrllimited=np.asarray(lay.act_ctrllimited, bool),
+        forcelimited=np.asarray(lay.act_forcelimited, bool),
+        actlimited=np.asarray(lay.act_actlimited, bool),
+        is_int=dyn == int(DynType.INTEGRATOR),
+        is_filt=dyn == int(DynType.FILTER),
+        is_fex=dyn == int(DynType.FILTEREXACT),
+        is_mus=dyn == int(DynType.MUSCLE),
+        has_act=dyn != int(DynType.NONE),
+        gain_aff=gt == int(GainType.AFFINE),
+        bias_aff=bt == int(BiasType.AFFINE),
+        gain_mus=gt == int(GainType.MUSCLE),
+        bias_mus=bt == int(BiasType.MUSCLE))
+
+
 def fwd_actuation(m: Model, d: Data) -> Data:
-    """mj_fwdActuation equivalent; only the actuator-free case is ported."""
+    """mj_fwdActuation equivalent: ctrl clamp -> activation dynamics ->
+    affine gain/bias force -> force clamp -> moment^T into dof space.
+
+    All shortcut actuators (motor/position/velocity/damper/intvelocity)
+    are the fixed/affine gain + none/affine bias special cases, so the
+    whole set is one branch-free vectorized formula; joint transmissions
+    make the moment matrix a STATIC 0/1 dof mask scaled by gear[0]
+    (Layout.act_moment01), so qfrc_actuator is a single matmul.  Site and
+    tendon transmissions are not ported (ROADMAP §A.7) and raise."""
     if m.nu == 0:
         return d
-    raise NotImplementedError(
-        "actuation is not ported yet (ROADMAP §A.7, next module)")
+    _check_transmissions(m)
+    dtype = d.qpos.dtype
+    pl = m.layout.const("actuation", lambda: _actuation_plan_np(m), dtype)
+    lay = m.layout
+    gear = m.actuator_gear.to(dtype)
+    gear0 = gear[:, 0]
+    # scalar-joint rows: length/velocity = gear0 * joint state; free/ball
+    # rows read length 0 and velocity = (gear vector) . qvel via moment01
+    # (act_gear0_eff = 1 there, the gear is folded into moment01)
+    g0eff, moment01 = pl["g0eff"], pl["moment01"]
+    length = d.qpos[:, pl["qposadr"]] * gear0 * pl["len_valid"]
+    velocity = g0eff * (d.qvel @ moment01.T)
+    # ball-joint rows: length = gear[:3] . rotation vector of the joint
+    # quaternion (mju_quat2Vel semantics, wrapped to [-pi, pi])
+    if len(pl["ball_rows"]):
+        rows = pl["ball_rows"]
+        q = mm.quat_normalize(d.qpos[:, pl["ball_qadr"]])
+        sin_half = torch.sqrt((q[..., 1:] ** 2).sum(-1) + 1e-30)
+        ang = 2.0 * torch.atan2(sin_half, q[..., 0])
+        ang = torch.where(ang > torch.pi, ang - 2.0 * torch.pi, ang)
+        rv = q[..., 1:] / sin_half[..., None] * ang[..., None]
+        length = length.index_copy(1, rows, (gear[rows, :3] * rv).sum(-1))
+
+    ctrl = d.ctrl.to(dtype)
+    cr = m.actuator_ctrlrange.to(dtype)
+    ctrl = torch.where(pl["ctrllimited"],
+                       torch.minimum(torch.maximum(ctrl, cr[:, 0]), cr[:, 1]),
+                       ctrl)
+    act = d.act.to(dtype)
+    dprm = m.actuator_dynprm.to(dtype)
+    tau = torch.clamp(dprm[:, 0], min=1e-12)
+    h = m.opt.timestep.to(dtype)
+    filt_dot = (ctrl - act) / tau
+    # filterexact folds the exact exponential update into act_dot so the
+    # integrators' plain act += h*act_dot advance reproduces it
+    fex_dot = ((ctrl - act) * (1.0 - torch.exp(-h / tau))
+               / torch.clamp(h, min=1e-12))
+    # muscle activation (mju_muscleDynamics, zero smoothing width): tau
+    # scales with activation, asymmetric for act/deact
+    cclamp = torch.clamp(ctrl, 0.0, 1.0)
+    tau_m = torch.where(cclamp > act,
+                        tau * (0.5 + 1.5 * act),
+                        torch.clamp(dprm[:, 1], min=1e-12)
+                        / torch.clamp(0.5 + 1.5 * act, min=1e-12))
+    mus_dot = (cclamp - act) / tau_m
+    zero = torch.zeros_like(ctrl)
+    act_dot = torch.where(
+        pl["is_int"], ctrl,
+        torch.where(pl["is_filt"], filt_dot,
+                    torch.where(pl["is_fex"], fex_dot,
+                                torch.where(pl["is_mus"], mus_dot, zero))))
+    inp = torch.where(pl["has_act"], act, ctrl)
+    gp = m.actuator_gainprm.to(dtype)
+    gain = gp[:, 0] + torch.where(
+        pl["gain_aff"], gp[:, 1] * length + gp[:, 2] * velocity, zero)
+    bp = m.actuator_biasprm.to(dtype)
+    bias = torch.where(
+        pl["bias_aff"], bp[:, 0] + bp[:, 1] * length + bp[:, 2] * velocity,
+        zero)
+
+    if (lay.act_gaintype == int(GainType.MUSCLE)).any() or (
+            lay.act_biastype == int(BiasType.MUSCLE)).any():
+        # mju_muscleGain/Bias FLV curves: normalized length L in L0 units,
+        # FL bump(lmin,1,lmax), FV piecewise quadratic saturating at fvmax,
+        # FP half-quadratic-then-linear scaled by fpmax
+        lr = m.actuator_lengthrange.to(dtype)
+        acc0 = torch.clamp(m.actuator_acc0.to(dtype), min=1e-12)
+        r0, r1 = gp[:, 0], gp[:, 1]
+        L0 = (lr[:, 1] - lr[:, 0]) / torch.clamp(r1 - r0, min=1e-12)
+        L0s = torch.clamp(L0, min=1e-12)
+        L = r0 + (length - lr[:, 0]) / L0s
+        V = velocity / (L0s * torch.clamp(gp[:, 6], min=1e-12))
+        F0 = torch.where(gp[:, 2] < 0, gp[:, 3] / acc0, gp[:, 2])
+        lmin, lmax, fpmax, fvmax = gp[:, 4], gp[:, 5], gp[:, 7], gp[:, 8]
+        mid = 1.0
+        left = 0.5 * (lmin + mid)
+        right = 0.5 * (mid + lmax)
+        x_a = (L - lmin) / torch.clamp(left - lmin, min=1e-12)
+        x_b = (mid - L) / torch.clamp(mid - left, min=1e-12)
+        x_c = (L - mid) / torch.clamp(right - mid, min=1e-12)
+        x_d = (lmax - L) / torch.clamp(lmax - right, min=1e-12)
+        FL = torch.where(
+            (L <= lmin) | (L >= lmax), zero,
+            torch.where(L < left, 0.5 * x_a * x_a,
+                        torch.where(L < mid, 1.0 - 0.5 * x_b * x_b,
+                                    torch.where(L < right,
+                                                1.0 - 0.5 * x_c * x_c,
+                                                0.5 * x_d * x_d))))
+        y = fvmax - 1.0
+        FV = torch.where(
+            V <= -1.0, zero,
+            torch.where(V <= 0.0, (V + 1.0) * (V + 1.0),
+                        torch.where(V <= y,
+                                    fvmax - (y - V) * (y - V)
+                                    / torch.clamp(y, min=1e-12),
+                                    fvmax + zero)))
+        bmid = 0.5 * (1.0 + lmax)
+        x_p = (L - 1.0) / torch.clamp(bmid - 1.0, min=1e-12)
+        FP = torch.where(
+            L <= 1.0, zero,
+            torch.where(L <= bmid, 0.5 * fpmax * x_p * x_p,
+                        fpmax * (0.5 + (L - bmid)
+                                 / torch.clamp(bmid - 1.0, min=1e-12))))
+        gain = torch.where(pl["gain_mus"], -F0 * FL * FV, gain)
+        bias = torch.where(pl["bias_mus"], -F0 * FP, bias)
+
+    force = gain * inp + bias
+    fr = m.actuator_forcerange.to(dtype)
+    force = torch.where(pl["forcelimited"],
+                        torch.minimum(torch.maximum(force, fr[:, 0]),
+                                      fr[:, 1]), force)
+    qfrc = (force * g0eff) @ moment01
+    return d.replace(act_dot=act_dot, actuator_length=length,
+                     actuator_velocity=velocity, actuator_force=force,
+                     qfrc_actuator=qfrc)
 
 
 def fwd_acceleration(m: Model, d: Data) -> Data:
@@ -344,16 +514,50 @@ def _euler(m: Model, d: Data) -> Data:
 def _advance_act(m: Model, d: Data, h) -> torch.Tensor:
     if m.nu == 0:
         return d.act
-    raise NotImplementedError(
-        "activation dynamics are not ported yet (ROADMAP §A.7)")
+    act = d.act + h * d.act_dot
+    if m.layout.act_actlimited.any():
+        ar = m.actuator_actrange.to(act.dtype)
+        act = torch.where(m.layout.dev.act_actlimited,
+                          torch.minimum(torch.maximum(act, ar[:, 0]),
+                                        ar[:, 1]), act)
+    return act
 
 
-def step(m: Model, d: Data) -> Data:
-    """One physics step for every env (mj_step equivalent)."""
-    d = forward(m, d)
+def _integrate(m: Model, d: Data) -> Data:
     d = d.replace(qacc_warmstart=d.qacc)
     if m.opt.integrator != int(Integrator.EULER):
         raise NotImplementedError(
             f"integrator {Integrator(m.opt.integrator).name} is not ported "
             "yet (ROADMAP §A.7)")
     return _euler(m, d)
+
+
+def step(m: Model, d: Data) -> Data:
+    """One physics step for every env (mj_step equivalent)."""
+    return _integrate(m, forward(m, d))
+
+
+def step1(m: Model, d: Data) -> Data:
+    """Position+velocity stages only: the hook point where controllers run
+    between mj_step1 and mj_step2."""
+    d = fwd_position(m, d)
+    d = fwd_velocity(m, d)
+    return d
+
+
+def step2(m: Model, d: Data) -> Data:
+    d = fwd_actuation(m, d)
+    d = fwd_acceleration(m, d)
+    d = fwd_constraint(m, d)
+    d = sensor_energy(m, d)
+    return _integrate(m, d)
+
+
+def step_with_control(m: Model, d: Data, ctrl_fn, *ctrl_args):
+    """step1 -> controller -> step2: the controller sees this step's
+    kinematics and velocities before the forces are applied.
+    ctrl_fn(m, d, *ctrl_args) -> (d, aux)."""
+    d = step1(m, d)
+    d, aux = ctrl_fn(m, d, *ctrl_args)
+    d = step2(m, d)
+    return d, aux

@@ -46,7 +46,10 @@ def from_jax_model(m) -> Model:
 
 def from_jax_data(d, device="cpu") -> Data:
     """Port Data from a JAX package Data whose leaves already carry the
-    leading env axis (e.g. a vmapped or broadcast batch)."""
+    leading env axis (e.g. a vmapped or broadcast batch).
+
+    A helper of the parity tests, which run on the CPU: unlike
+    ``engine.put_model`` its device defaults to the CPU."""
     def conv(cls, src):
         return cls(**{n: torch.as_tensor(np.array(getattr(src, n)),
                                          device=device)

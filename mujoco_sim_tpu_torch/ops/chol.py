@@ -6,8 +6,9 @@ systems constantly: qacc_smooth (M x = qfrc), the Euler velocity update
 iteration.  ``chol_solve`` picks its path from the tensor's device, never
 from a switch:
 
-* a CUDA tensor launches the kernel in csrc/chol_solve.cu (built with nvcc
-  at first use into ``_build/``, loaded with ctypes) or raises;
+* a CUDA tensor launches the kernel in csrc/chol_solve.cu (built by
+  ops/cuda_build.py with nvcc at first use into ``_build/``, loaded with
+  ctypes) or raises;
 * a CPU tensor takes the plain twin ``chol_solve_plain`` (ops/linalg.py
   cholesky + cho_solve, the JAX package's CPU path).
 
@@ -19,22 +20,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
-from mujoco_sim_tpu_torch.ops import linalg
+from mujoco_sim_tpu_torch.ops import cuda_build, linalg
 
 LAUNCHES = 0
 
 MAX_N = 64
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "chol_solve.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCE = cuda_build.source_path("chol_solve")
 
 
 def chol_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -42,44 +36,10 @@ def chol_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return linalg.cho_solve(linalg.cholesky(A), b)
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    found = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def build() -> str:
-    """Compile csrc/chol_solve.cu into _build/ (keyed by the source hash)
-    unless already built; returns the shared library's path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"chol_solve_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, out)     # atomic: a concurrent build never sees half
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
-
-
 @functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
-    lib = ctypes.CDLL(build())
+    lib = cuda_build.load("chol_solve")
     lib.chol_solve_f32.restype = ctypes.c_int
     lib.chol_solve_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

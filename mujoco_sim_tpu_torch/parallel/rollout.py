@@ -32,19 +32,25 @@ def _carry(d: Data) -> dict:
     return {k: getattr(d, k) for k in RECURRENT}
 
 
-def rollout(m: Model, dB: Data, nsteps: int, full_final: bool = True) -> Data:
+def rollout(m: Model, dB: Data, nsteps: int, full_final: bool = True,
+            ctrl_fn=None) -> Data:
     """``nsteps`` batched steps from dB, carrying only RECURRENT leaves.
 
     Every step starts from dB with the carried leaves replaced, so a leaf
     the step reads but RECURRENT misses would show as a wrong result.
     full_final=False returns dB with only the recurrent leaves advanced
     (the derived leaves are stale template values, as in the JAX package).
+    ctrl_fn(d) -> ctrl (nenv, nu), if given, sets the controls before each
+    step from the state that step starts from (its ``time``, ``qpos``...).
     """
     if nsteps <= 0:
         return dB
     carry = _carry(dB)
-    for _ in range(nsteps - 1):
-        carry = _carry(batched_step(m, dB.replace(**carry)))
-    if not full_final:
-        return dB.replace(**_carry(batched_step(m, dB.replace(**carry))))
-    return batched_step(m, dB.replace(**carry))
+    for i in range(nsteps):
+        d = dB.replace(**carry)
+        if ctrl_fn is not None:
+            d = d.replace(ctrl=ctrl_fn(d))
+        d = batched_step(m, d)
+        if i < nsteps - 1 or not full_final:
+            carry = _carry(d)
+    return d if full_final else dB.replace(**carry)

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import mujoco_sim_tpu_torch as mst
-from mujoco_sim_tpu_torch.ops import chol
+from mujoco_sim_tpu_torch.ops import (chol, hull_sat, manifold, mtv_query,
+                                      support_minmax)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 
@@ -92,3 +93,135 @@ def test_step_on_card_runs_the_kernel(cuda_device):
     assert bool((d.qLD == 0).all())
     assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
     assert int(d.ncon.min()) > 0
+
+
+def _hull_inputs(rng, N, V, F, dev):
+    pts = rng.standard_normal((N, V, 3))
+    n = rng.standard_normal((N, F, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    planes = np.concatenate([n, rng.uniform(0.3, 1.2, (N, F, 1))], axis=-1)
+    mask = (rng.uniform(size=(N, V)) > 0.25).astype(np.float64)
+    mask[:, 0] = 1.0
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    return t(pts), t(planes), t(mask), t(rng.uniform(0.0, 0.3, (N,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,F", [(8, 12), (24, 44), (80, 144)])
+@pytest.mark.parametrize("K,lateral", [(2, False), (2, True), (4, True)])
+def test_hull_sat_kernel_matches_plain_twin(V, F, K, lateral, cuda_device):
+    """f32 kernel (built without FMA contraction) vs f32 twin on the same
+    CUDA tensors: values to 1e-6 + 1e-5 rel, indices equal on these
+    tie-free random inputs."""
+    rng = np.random.default_rng(0)
+    pts, planes, mask, slack = _hull_inputs(rng, 1000, V, F, cuda_device)
+    before = hull_sat.LAUNCHES
+    out = hull_sat.hull_ref_face_depth(pts, planes, K, mask, lateral, slack)
+    torch.cuda.synchronize()
+    assert hull_sat.LAUNCHES == before + 1
+    ref = hull_sat.hull_ref_face_depth_plain(pts, planes, K, mask, lateral,
+                                             slack)
+    torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(out[1], ref[1])
+    torch.testing.assert_close(out[2], ref[2], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,V", [(68, 24), (256, 24), (288, 80)])
+def test_support_minmax_kernel_matches_plain_twin(C, V, cuda_device):
+    rng = np.random.default_rng(1)
+    axes = torch.tensor(rng.normal(size=(500, C, 3)), dtype=torch.float32,
+                        device=cuda_device)
+    w = torch.tensor(rng.normal(size=(500, V, 3)), dtype=torch.float32,
+                     device=cuda_device)
+    before = support_minmax.LAUNCHES
+    mn, mx = support_minmax.support_minmax(axes, w)
+    torch.cuda.synchronize()
+    assert support_minmax.LAUNCHES == before + 1
+    rn, rx = support_minmax.support_minmax_plain(axes, w)
+    torch.testing.assert_close(mn, rn, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(mx, rx, rtol=1e-5, atol=1e-6)
+
+
+def _mtv_inputs(rng, N, V, E, F, dev):
+    def hull(cyl_every):
+        pts = rng.normal(size=(N, V, 3)) * 0.3
+        R = np.linalg.qr(rng.normal(size=(N, 3, 3)))[0]
+        R[:, :, 0] *= np.sign(np.linalg.det(R))[:, None]
+        p = rng.normal(size=(N, 3)) * 0.1
+        w = p[:, None] + pts @ R.transpose(0, 2, 1)
+        he = rng.normal(size=(N, E, 2, 3)) * 0.3
+        hm = (rng.uniform(size=(N, E)) > 0.2).astype(np.float64)
+        nf = rng.normal(size=(N, F, 3))
+        nf /= np.linalg.norm(nf, axis=-1, keepdims=True)
+        fm = (rng.uniform(size=(N, F)) > 0.15).astype(np.float64)
+        fm[:, 0] = 1.0
+        cyl = np.zeros((N, 3))
+        cyl[::cyl_every] = [1.0, 0.2, 0.35]
+        return w, he, hm, nf, fm, R, p, cyl
+    A, B = hull(2), hull(3)
+    order = (0, 1, 2, 3, 4, 5, 6, 7)
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    # wA wB heA heB hmA hmB nfA nfB fmA fmB RA RB pA pB cylA cylB
+    return [t(x) for i in order for x in (A[i], B[i])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,E,F", [(8, 12, 6), (24, 56, 34), (80, 216, 144)])
+def test_mtv_query_kernel_matches_plain_twin(V, E, F, cuda_device):
+    """Depth to 2e-5 (the band of tests/test_pallas_refine.py: cross axes
+    of nearly parallel edges are ill-conditioned in f32), axes agreeing in
+    all but a few near-tied lanes; mtv_staged (support_minmax inside)
+    likewise."""
+    rng = np.random.default_rng(2)
+    args = _mtv_inputs(rng, 1000, V, E, F, cuda_device)
+    before = mtv_query.LAUNCHES, support_minmax.LAUNCHES
+    dep, n = mtv_query.mtv_query(*args)
+    dep_s, n_s = manifold.mtv_staged(*args)
+    torch.cuda.synchronize()
+    assert mtv_query.LAUNCHES == before[0] + 1
+    assert support_minmax.LAUNCHES > before[1]
+    rd, rn = mtv_query.mtv_query_plain(*args)
+    for d_, n_ in ((dep, n), (dep_s, n_s)):
+        torch.testing.assert_close(d_, rd, rtol=1e-5, atol=2e-5)
+        assert int(((n_ * rn).sum(-1) < 1 - 1e-5).sum()) <= 10
+
+
+@pytest.mark.cuda
+def test_collision_wrappers_reject_what_they_cannot_take(cuda_device):
+    pts = torch.zeros(4, 8, 3, device=cuda_device)
+    planes = torch.zeros(4, 12, 4, device=cuda_device)
+    with pytest.raises(TypeError):                      # not float32
+        hull_sat.hull_ref_face_depth(pts.double(), planes.double(), 2)
+    with pytest.raises(ValueError):                     # k_out >= V
+        hull_sat.hull_ref_face_depth(pts, planes, 8)
+    with pytest.raises(ValueError):                     # not contiguous
+        hull_sat.hull_ref_face_depth(pts.transpose(0, 1).contiguous()
+                                     .transpose(0, 1), planes, 2)
+    with pytest.raises(ValueError):                     # shapes
+        support_minmax.support_minmax(pts, planes)
+
+
+@pytest.mark.cuda
+def test_manip_rollout_on_card_runs_the_collision_kernels(cuda_device):
+    """20 stirred steps of manip_bin6 at 64 envs, f32 on the card: both
+    hull_ref_face_depth calls and the exact-MTV query launch every step,
+    nothing goes non-finite, the objects stay in the bin."""
+    m = mst.put_model(mst.load_model(str(FIXTURES / "manip_bin6.xml")))
+    assert m.device.type == "cuda" and m.dtype == torch.float32
+    d = mst.make_data(m, 64)
+    phase = torch.tensor(np.random.default_rng(1).uniform(0, 6.28, (64, m.nu)),
+                         dtype=torch.float32, device=cuda_device)
+    before = hull_sat.LAUNCHES, mtv_query.LAUNCHES, chol.LAUNCHES
+    d = mst.rollout(m, d, 20,
+                    ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
+                                                 + phase))
+    torch.cuda.synchronize()
+    assert hull_sat.LAUNCHES - before[0] == 2 * 20
+    assert mtv_query.LAUNCHES - before[1] == 20
+    assert chol.LAUNCHES - before[2] > 2 * 20
+    assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
+    pos = torch.stack([d.qpos[:, 6 + 7 * i:9 + 7 * i] for i in range(6)], 1)
+    assert bool((pos[..., :2].abs() < 0.34).all() & (pos[..., 2] > 0).all())
+    assert int(d.ncon.min()) >= 8
