@@ -1,10 +1,12 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's main paths (mujoco_sim_tpu_torch: load_model -> put_model
--> make_data -> rollout of the batched Euler step) on the card: the
-primitive-geom box scene at 4096 envs and the contact-rich manipulation
-scene (an arm stirring six convex meshes in a bin) at 1024 envs.  Builds
-the hand-written kernels from the checkout's own sources, holds each
+-> make_data -> rollout of the batched step) on the card: the
+primitive-geom box scene at 4096 envs (Euler, then short RK4 and implicit
+rollouts), the contact-rich manipulation scene (an arm stirring six convex
+meshes in a bin) at 1024 envs, and the same scene as a precise-contact,
+sensed step (elliptic cone, noslip, 31 sensor values) at 1024 envs.  Builds
+the six hand-written kernels from the checkout's own sources, holds each
 against its plain PyTorch twin, and checks the results.  Run from the root
 of a checkout, with one card:
 
@@ -17,8 +19,8 @@ record (JSON); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 ``python3 chip_smoke.py build kernels`` runs only the named phases (of
-env, build, kernels, box, manip) and prints no final record: a quick check
-of the kernels alone.
+env, build, kernels, box, manip, precise) and prints no final record: a
+quick check of the kernels alone.
 """
 
 from __future__ import annotations
@@ -38,11 +40,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BOX = os.path.join(ROOT, "tests", "fixtures", "floor_box.xml")
 STACK = os.path.join(ROOT, "tests", "fixtures", "stack.xml")
 MANIP = os.path.join(ROOT, "tests", "fixtures", "manip_bin6.xml")
+PRECISE = os.path.join(ROOT, "tests", "fixtures", "manip_bin6_precise.xml")
 NENV = 4096
 MANIP_NENV = 1024
 # chol_solve vs plain twin: |x_kernel - x_plain| <= ATOL + RTOL |x_plain|
 # (f32, the two round differently; the band of tests/test_pallas_chol.py)
 RTOL = ATOL = 2e-5
+# chol_factor vs plain twin (ops/linalg.cholesky): the same band on L.  The
+# kernel scales a column by 1 / sqrt(pivot), the twin divides by
+# sqrt(pivot) and sums its blocked update in another order, so the two
+# round differently by a few ulp of the largest entry of a row.
 # collision kernels vs plain twins: values to HATOL + HRTOL |twin|; an index
 # or axis that differs is accepted (and counted) only where the twin's own
 # candidates tie within that band
@@ -67,6 +74,17 @@ CROSS_TOL = 2e-3
 MANIP_CROSS_TOL = 2.5e-3
 MANIP_CROSS_FRACTION = 0.95
 MANIP_CROSS_POS_TOL = 2e-2
+# the precise scene adds two more places where a last-bit difference turns
+# into a different step: the elliptic Newton solver rejects a step whose
+# cost rises by one ulp and then stops, and the noslip sweeps clip at their
+# cone box.  Its objects are held to the same 2 cm; the fraction of qpos
+# entries inside the 2.5e-3 band must be 85% (measured 91% on the card).
+PRECISE_CROSS_FRACTION = 0.85
+# precise step, first step, f32 card vs f64 CPU: each sensor value within
+# SENSOR_RTOL of the f64 value, relative to the larger of 1 and the
+# largest magnitude within that sensor's own reading (a 3-vector whose one
+# component passes through zero is held to the vector's scale)
+SENSOR_RTOL = 1e-3
 # published peaks of one H100 SXM: device memory rate and f32 (non tensor
 # core) rate, for the least time a kernel's work could take
 HBM_BYTES_PER_S = 3.35e12
@@ -112,12 +130,16 @@ def _ptxas(text):
 
 
 def build():
-    from mujoco_sim_tpu_torch.ops import (chol, cuda_build, hull_sat,
-                                          mtv_query, support_minmax)
+    from mujoco_sim_tpu_torch.ops import (chol, chol_factor, cuda_build,
+                                          face_sat, hull_sat, mtv_query,
+                                          support_minmax)
     t0 = time.perf_counter()
     info = cuda_build.build_all()
-    for mod in (chol, hull_sat, mtv_query, support_minmax):
+    for mod in (chol, chol_factor, hull_sat, mtv_query, support_minmax,
+                face_sat):
         mod._load()
+    if len(info) != 6:
+        raise AssertionError(f"expected six kernels, built {sorted(info)}")
     phase("build", wall_seconds=time.perf_counter() - t0, kernels={
         name: dict(source=os.path.relpath(cuda_build.source_path(name), ROOT),
                    library=os.path.relpath(i["path"], ROOT),
@@ -203,6 +225,126 @@ def chol_vs_plain():
           tolerance=f"atol {ATOL} + rtol {RTOL}", stiff_1e9_case="ok",
           timing={f"n{n}_N{N}": t for (n, N), t in timing.items()})
     return worst_abs, timing
+
+
+# -------------------------------------------------------------- chol_factor
+
+def _factor_bound(N, n):
+    return _bound(N * 2 * n * n * 4, N * n ** 3 / 3)
+
+
+def _time_factor(A):
+    from mujoco_sim_tpu_torch.ops import chol_factor
+    N, n = A.shape[0], A.shape[-1]
+    bound, by = _factor_bound(N, n)
+    return dict(
+        ms=_median_ms(lambda: chol_factor.chol_factor_cuda(A)),
+        plain_ms=_median_ms(lambda: chol_factor.chol_factor_plain(A)),
+        library_ms=_median_ms(lambda: torch.linalg.cholesky(A)),
+        bound_ms=bound, bound_by=by)
+
+
+def chol_factor_vs_plain():
+    from mujoco_sim_tpu_torch.ops import chol_factor
+    rng = np.random.default_rng(2)
+    cases = [(NENV, 6, False), (MANIP_NENV, 42, False), (256, 49, False),
+             (130, 64, False), (130, 12, True)]   # stiff: diagonal ~1e9
+    worst_abs, worst_rel = 0.0, 0.0
+    timing = {}
+    for N, n, stiff in cases:
+        A = _spd(rng, N, n)
+        if stiff:
+            A[:, 0, 0] += 1e9
+        At = _cuda(A)
+        L = chol_factor.chol_factor_cuda(At)
+        torch.cuda.synchronize()
+        Lp = chol_factor.chol_factor_plain(At)
+        if not bool(torch.isfinite(L).all()):
+            raise AssertionError(f"chol_factor not finite at n={n} N={N}")
+        if not bool((torch.triu(L, 1) == 0).all()):
+            raise AssertionError("chol_factor: entries above the diagonal")
+        err = (L - Lp).abs()
+        if bool((err > ATOL + RTOL * Lp.abs()).any()):
+            raise AssertionError(f"chol_factor disagrees with plain at n={n} "
+                                 f"N={N}: max abs err {float(err.max())}")
+        # the factor reproduces the matrix, relative to its diagonal scale
+        scale = torch.diagonal(At, dim1=-2, dim2=-1).amax(-1)
+        resid = float(((L @ L.transpose(-1, -2) - At).abs().amax((-1, -2))
+                       / scale).max())
+        if resid > 1e-5:
+            raise AssertionError(f"chol_factor: |L L^T - A| / max diag = "
+                                 f"{resid} at n={n} N={N}")
+        worst_rel = max(worst_rel, float((err / Lp.abs().amax()).max()))
+        if stiff:
+            stiff_abs = float(err.max())     # entries up to sqrt(1e9)
+        else:
+            worst_abs = max(worst_abs, float(err.max()))
+            timing[(n, N)] = _time_factor(At)
+    phase("kernel_vs_plain", kernel="chol_factor", cases=len(cases),
+          max_abs_err=worst_abs, max_err_over_largest_entry=worst_rel,
+          tolerance=f"atol {ATOL} + rtol {RTOL}",
+          stiff_1e9_case=dict(max_abs_err=stiff_abs, largest_entry=1e9 ** 0.5),
+          timing={f"n{n}_N{N}": t for (n, N), t in timing.items()})
+    return worst_abs, timing
+
+
+# ----------------------------------------------------------- face_sat_depth
+
+def _face_sat_bound(N, V, F, K):
+    return _bound(N * (4 * (4 * V + 4 * F) + 8 * K + 20),
+                  N * (6 * V * F + 6 * V))
+
+
+def face_sat_vs_plain():
+    """face_sat_depth against its twin: random, masked and exactly tied
+    inputs (two identical faces, two identical vertices), an all-masked
+    instance; every index equal, values within the band."""
+    from mujoco_sim_tpu_torch.ops import face_sat
+    rng = np.random.default_rng(3)
+    worst, ncase, timing = 0.0, 0, {}
+    for V, F in ((8, 12), (32, 60), (80, 144)):
+        for N in (130, 8192):
+            pts, planes, mask, _ = _sat_inputs(rng, N, V, F)
+            mask[1] = 0.0                      # nothing left to pick
+            for K in (2, 4):
+                ncase += 1
+                out = face_sat.face_sat_depth_cuda(pts, planes, mask, K)
+                torch.cuda.synchronize()
+                ref = face_sat.face_sat_depth_plain(pts, planes, mask, K)
+                what = f"V={V} F={F} N={N} K={K}"
+                if not bool((out[1] == ref[1]).all()):
+                    raise AssertionError(
+                        f"face_sat_depth {what}: {int((out[1] != ref[1]).sum())}"
+                        " vertex indices differ from the twin's")
+                for name, a, b in (("depth", out[0], ref[0]),
+                                   ("plane", out[2], ref[2]),
+                                   ("sep", out[3], ref[3])):
+                    if not bool(_close(a, b).all()):
+                        raise AssertionError(
+                            f"face_sat_depth {what}: {name} disagrees with "
+                            f"the twin, max abs err {_max_err(a, b)}")
+                    worst = max(worst, _max_err(a, b))
+            if (V, F, N) == (32, 60, 8192):
+                bound, by = _face_sat_bound(N, V, F, 2)
+                timing = dict(
+                    N=N, V=V, F=F, K=2,
+                    ms=_median_ms(lambda: face_sat.face_sat_depth_cuda(
+                        pts, planes, mask, 2)),
+                    plain_ms=_median_ms(lambda: face_sat.face_sat_depth_plain(
+                        pts, planes, mask, 2)),
+                    bound_ms=bound, bound_by=by)
+    # its own entry point's path: counts set to 0 just before, read just
+    # after (no step calls it; scripts/torch_sat_proto.py does)
+    face_sat.LAUNCHES = 0
+    face_sat.face_sat_depth(pts, planes, mask, 2)
+    torch.cuda.synchronize()
+    launches = face_sat.LAUNCHES
+    if launches != 1:
+        raise AssertionError(f"face_sat_depth launched {launches} times")
+    phase("kernel_vs_plain", kernel="face_sat_depth", cases=ncase,
+          max_abs_err=worst, indices="all equal",
+          tolerance=f"atol {HATOL} + rtol {HRTOL}", timing=timing)
+    return worst, timing, launches
 
 
 # ----------------------------------------------------- the collision kernels
@@ -474,16 +616,19 @@ def _settled(d, half_lo, z_hi, speed):
 
 
 def _reset_counts():
-    from mujoco_sim_tpu_torch.ops import (chol, hull_sat, mtv_query,
-                                          support_minmax)
-    for mod in (chol, hull_sat, mtv_query, support_minmax):
+    from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
+                                          hull_sat, mtv_query, support_minmax)
+    for mod in (chol, chol_factor, face_sat, hull_sat, mtv_query,
+                support_minmax):
         mod.LAUNCHES = 0
 
 
 def _counts():
-    from mujoco_sim_tpu_torch.ops import (chol, hull_sat, mtv_query,
-                                          support_minmax)
+    from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
+                                          hull_sat, mtv_query, support_minmax)
     return dict(chol_solve=chol.LAUNCHES,
+                chol_factor=chol_factor.LAUNCHES,
+                face_sat_depth=face_sat.LAUNCHES,
                 hull_ref_face_depth=hull_sat.LAUNCHES,
                 mtv_query=mtv_query.LAUNCHES,
                 support_minmax=support_minmax.LAUNCHES)
@@ -548,7 +693,34 @@ def box_main_path(card):
           finite=True, settled=True, z_range=[zmin, zmax], max_speed=vmax,
           rollout_s=times, env_steps_per_s=NENV * nsteps / min(times),
           card=card)
-    return m, qpos, qvel, launches
+    return m, qpos, qvel, launches, d
+
+
+def box_integrators(m, d_rest):
+    """Short RK4 and implicit rollouts of box @4096 from the settled state
+    of the Euler rollouts: finite and still at rest."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.models.model import Integrator
+    nsteps, out = 50, {}
+    for integ in (Integrator.RK4, Integrator.IMPLICIT):
+        mi = m.replace(opt=m.opt.replace(integrator=int(integ)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = mst.rollout(mi, d_rest, nsteps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        bad = _float_leaves_finite(d)
+        if bad:
+            raise AssertionError(f"{integ.name}: non-finite leaves: {bad}")
+        ok, zmin, zmax, vmax = _settled(d, [0.08], 0.12 + 0.01, 0.05)
+        if not bool(ok.all()):
+            raise AssertionError(
+                f"{integ.name}: {int((~ok).sum())} boxes not at rest: z in "
+                f"[{zmin}, {zmax}], max speed {vmax}")
+        out[integ.name] = dict(seconds=secs, z_range=[zmin, zmax],
+                               max_speed=vmax)
+    phase("box_integrators", scene="floor_box.xml", nenv=NENV, steps=nsteps,
+          finite=True, settled=True, **out)
 
 
 def box_cross_check(m, qpos, qvel):
@@ -685,6 +857,10 @@ def _manip_checks(m, d, probe, counts, nsteps, what):
     for k in ("chol_solve", "hull_ref_face_depth", "mtv_query"):
         if counts[k] == 0:
             raise AssertionError(f"manip {what}: {k} was never launched")
+    if counts["chol_factor"] != (nsteps if m.opt.noslip_iterations else 0):
+        raise AssertionError(
+            f"manip {what}: chol_factor ran {counts['chol_factor']} times in "
+            f"{nsteps} steps (one per step with noslip, none without)")
     if counts["hull_ref_face_depth"] < 2 * nsteps:
         raise AssertionError(
             f"manip {what}: hull_ref_face_depth ran "
@@ -706,19 +882,20 @@ def manip_main_path(card):
     m = mst.put_model(mst.load_model(MANIP))     # float32, on the card
     d0 = mst.make_data(m, MANIP_NENV)
     stir = _stir(MANIP_NENV, m.nu, m.device, m.dtype)
-    nsteps = 300
+    nsteps = 150
 
     _reset_counts()
-    with _Probe(capture_calls=(100, 200, 300)) as probe:
+    with _Probe(capture_calls=(50, 100, 150)) as probe:
         d = mst.rollout(m, d0, nsteps, ctrl_fn=stir)
         torch.cuda.synchronize()
     counts = _counts()
     ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "main path")
     enabled = int(probe.enabled)
     times = _timed_rollouts(
-        lambda: mst.rollout(m, d0, nsteps, ctrl_fn=stir), 2)
+        lambda: mst.rollout(m, d0, nsteps, ctrl_fn=stir), 1)
     phase("manip_main_path", scene="manip_bin6.xml", nenv=MANIP_NENV,
-          steps=nsteps, launches=counts,
+          steps=nsteps, timed="1 rollout of 150 steps after 1 warm-up",
+          launches=counts,
           launches_per_step={k: v / nsteps for k, v in counts.items()},
           finite=True, objects_in_bin=True,
           object_z_range=[float(pos[..., 2].min()), float(pos[..., 2].max())],
@@ -853,6 +1030,166 @@ def manip_cross_check(m):
           max_dev_qvel=float((outs[0][1] - outs[1][1]).abs().max()))
 
 
+# --------------------------------------------------------- precise main path
+
+def _sensor_slices(m):
+    """{sensor type name: [(adr, dim), ...]} of the model's sensordata."""
+    from mujoco_sim_tpu_torch.models.model import SensorType
+    lay, out = m.layout, {}
+    for k in range(m.nsensor):
+        out.setdefault(SensorType(int(lay.sensor_type[k])).name, []).append(
+            (int(lay.sensor_adr[k]), int(lay.sensor_dim[k])))
+    return out
+
+
+def _stage_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def precise_main_path(card):
+    """manip_precise @1024: elliptic cone, three noslip sweeps, the qLD
+    factor from the chol_factor kernel, 31 sensor values per step."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch import engine
+    from mujoco_sim_tpu_torch.ops import noslip, sensor, solver
+    m = mst.put_model(mst.load_model(PRECISE))   # float32, on the card
+    d0 = mst.make_data(m, MANIP_NENV)
+    stir = _stir(MANIP_NENV, m.nu, m.device, m.dtype)
+    nsteps = 200
+
+    # warm-up rollout: short (plans, allocator); the timed rollout starts
+    # from the same state and repeats its first steps bit for bit
+    nwarm = 20
+    dw = mst.rollout(m, d0, nwarm, ctrl_fn=stir)
+    torch.cuda.synchronize()
+    # the timed rollout is the one whose launches are counted
+    _reset_counts()
+    final = []
+    with _Probe() as probe:
+        times = _timed_rollouts(
+            lambda: final.append(mst.rollout(m, d0, nsteps, ctrl_fn=stir)), 1)
+    counts = _counts()
+    d = final[0]
+    ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "precise")
+    bad = _float_leaves_finite(dw)
+    if bad:
+        raise AssertionError(f"precise warm-up: non-finite leaves: {bad}")
+    repeat_dev = float((mst.rollout(m, d0, nwarm, ctrl_fn=stir).qpos
+                        - dw.qpos).abs().max())
+
+    # the factor the noslip pass used
+    if not bool((d.qLD != 0).any(-1).any(-1).all()):
+        raise AssertionError("precise: qLD is zero in some env")
+    scale = torch.diagonal(d.qM, dim1=-2, dim2=-1).amax(-1)
+    resid = float(((d.qLD @ d.qLD.transpose(-1, -2) - d.qM).abs().amax(
+        (-1, -2)) / scale).max())
+    if resid > 1e-5:
+        raise AssertionError(f"precise: |qLD qLD^T - qM| / max diag {resid}")
+
+    # sensors
+    sl = _sensor_slices(m)
+    sd = d.sensordata
+    if sd.shape != (MANIP_NENV, 31) or not bool(torch.isfinite(sd).all()):
+        raise AssertionError(f"precise: sensordata {tuple(sd.shape)} or "
+                             "not finite")
+    rf = sd[:, sl["RANGEFINDER"][0][0]]
+    # a hit is a distance >= 0 (0: the ray starts inside a convex hull,
+    # whose intersector clamps the entry parameter at 0), a miss exactly -1
+    if not bool(((rf >= 0) | (rf == -1.0)).all()):
+        raise AssertionError("precise: a rangefinder reading is neither a "
+                             "distance nor -1")
+    touch = sd[:, sl["TOUCH"][0][0]]
+    if not bool((touch >= 0).all()):
+        raise AssertionError("precise: negative touch reading")
+
+    # stage times on the final state, each stage alone and synchronised
+    dpre = engine.fwd_acceleration(m, engine.fwd_actuation(
+        m, engine.fwd_velocity(m, engine.fwd_position(m, d))))
+    dsol, solve_ms = _stage_ms(lambda: solver.solve(m, dpre))
+    dnos, noslip_ms = _stage_ms(lambda: noslip.noslip(m, dsol))
+    _, sensor_ms = _stage_ms(lambda: sensor.sensors(m, dnos))
+    _, step_ms = _stage_ms(lambda: engine.step(m, d))
+    # noslip's matrix right-hand side M^-1 Jd^T: one library call at the
+    # shape of the 64 friction rows
+    rhs = torch.randn(MANIP_NENV, m.nv, 64, device=d.qLD.device)
+    solve_mat_ms = _median_ms(lambda: torch.cholesky_solve(rhs, d.qLD))
+    phase("precise_stages", state="after the timed rollout", step_ms=step_ms,
+          elliptic_solve_ms=solve_ms, noslip_ms=noslip_ms,
+          noslip_cholesky_solve_ms=solve_mat_ms, sensors_ms=sensor_ms,
+          card=card)
+    # chol_factor at the rollout's own mass matrices
+    ferr = float((engine.smooth.factor_chol(d.qM) - d.qLD).abs().max())
+    ftime = _time_factor(d.qM.contiguous())
+    phase("precise_chol_factor", shape=list(d.qM.shape),
+          refactor_max_abs_diff=ferr, **ftime)
+
+    phase("precise_main_path", scene="manip_bin6_precise.xml",
+          nenv=MANIP_NENV, steps=nsteps,
+          timed="1 rollout of 200 steps after a 20-step warm-up",
+          launches=counts,
+          launches_per_step={k: v / nsteps for k, v in counts.items()},
+          finite=True, objects_in_bin=True,
+          object_z_range=[float(pos[..., 2].min()), float(pos[..., 2].max())],
+          ncon_max_seen=ncon_max, ncon_budget=m.ncon_max,
+          qLD_residual=resid, max_dev_qpos_between_two_20_step_rollouts=repeat_dev,
+          rangefinder_hits=int((rf > 0).sum()),
+          rangefinder_starts_inside_a_hull=int((rf == 0).sum()),
+          rangefinder_range=[float(rf.min()), float(rf.max())],
+          touch_max=float(touch.max()), touching_envs=int((touch > 0).sum()),
+          rollout_s=times, ms_per_step=min(times) / nsteps * 1e3,
+          env_steps_per_s=MANIP_NENV * nsteps / min(times), card=card)
+    return m, counts, ftime
+
+
+def precise_cross_check(m):
+    """f32 card vs f64 CPU on manip_precise: sensordata after the first
+    step, then 50 stirred steps at the manip band."""
+    import mujoco_sim_tpu_torch as mst
+    n, nsteps = 16, 50
+    m64 = mst.put_model(mst.load_model(PRECISE), torch.float64, "cpu")
+    outs, first = [], []
+    for mm_ in (m, m64):
+        stir = _stir(n, mm_.nu, mm_.device, mm_.dtype)
+        d0 = mst.make_data(mm_, n)
+        first.append(mst.rollout(mm_, d0, 1, ctrl_fn=stir)
+                     .sensordata.double().cpu())
+        d = mst.rollout(mm_, d0, nsteps, ctrl_fn=stir)
+        outs.append((d.qpos.double().cpu(), d.qvel.double().cpu()))
+    worst_sensor, worst_name = 0.0, ""
+    for name, slices in _sensor_slices(m).items():
+        for adr, dim in slices:
+            a, b = first[0][:, adr:adr + dim], first[1][:, adr:adr + dim]
+            rel = float(((a - b).abs().amax(-1)
+                         / b.abs().amax(-1).clamp(min=1.0)).max())
+            if rel > worst_sensor:
+                worst_sensor, worst_name = rel, name
+    if worst_sensor > SENSOR_RTOL:
+        raise AssertionError(
+            f"precise card f32 vs CPU f64: sensor {worst_name} of the first "
+            f"step off by {worst_sensor} relative > {SENSOR_RTOL}")
+    dq = (outs[0][0] - outs[1][0]).abs()
+    within = float((dq <= MANIP_CROSS_TOL).double().mean())
+    dpos = float(torch.stack([dq[:, 6 + 7 * i:9 + 7 * i]
+                              for i in range(6)]).max())
+    if within < PRECISE_CROSS_FRACTION or not dpos <= MANIP_CROSS_POS_TOL:
+        raise AssertionError(
+            f"precise card f32 vs CPU f64: {within:.3f} of qpos within "
+            f"{MANIP_CROSS_TOL} (median {float(dq.median())}, max "
+            f"{float(dq.max())}), objects off by up to {dpos} m")
+    phase("precise_cross_check", scene="manip_bin6_precise.xml", nenv=n,
+          steps=nsteps, max_dev_qpos=float(dq.max()),
+          median_dev_qpos=float(dq.median()), fraction_within_band=within,
+          band=MANIP_CROSS_TOL, required_fraction=PRECISE_CROSS_FRACTION,
+          max_dev_object_position=dpos, object_band=MANIP_CROSS_POS_TOL,
+          first_step_sensor_max_rel=worst_sensor,
+          first_step_sensor_worst=worst_name, sensor_band=SENSOR_RTOL)
+
+
 def main(argv):
     t_start = time.perf_counter()
     only = set(argv)
@@ -862,15 +1199,21 @@ def main(argv):
         build()
     if want("kernels"):
         chol_err, chol_t = chol_vs_plain()
+        fact_err, fact_t = chol_factor_vs_plain()
+        fsat_err, fsat_t, fsat_launches = face_sat_vs_plain()
         rand_err = kernels_vs_plain()
     if want("box"):
-        m, qpos, qvel, box_launches = box_main_path(card)
+        m, qpos, qvel, box_launches, d_rest = box_main_path(card)
+        box_integrators(m, d_rest)
         box_cross_check(m, qpos, qvel)
         second_scene()
     if want("manip"):
         mm_, counts, probe = manip_main_path(card)
         cap_err, t = manip_kernels(probe)
         manip_cross_check(mm_)
+    if want("precise"):
+        mp_, pcounts, fact_step_t = precise_main_path(card)
+        precise_cross_check(mp_)
     phase("total", seconds=time.perf_counter() - t_start)
     if only:
         return
@@ -883,18 +1226,22 @@ def main(argv):
              launches=counts["chol_solve"], max_abs_err=chol_err,
              ms=c42["ms"], plain_ms=c42["plain_ms"],
              bound_ms=c42["bound_ms"], bound_by=c42["bound_by"],
-             library_ms=c42["library_ms"], launches_box_path=box_launches),
+             library_ms=c42["library_ms"], launches_box_path=box_launches,
+             launches_precise_path=pcounts["chol_solve"]),
         dict(name="hull_ref_face_depth", route="cuda",
              source=src + "hull_sat.cu",
              replaces="mujoco_sim_tpu/ops/pallas_sat.py:40",
              launches=counts["hull_ref_face_depth"],
+             launches_precise_path=pcounts["hull_ref_face_depth"],
              max_abs_err=worst["hull_ref_face_depth"],
              ms=t["mesh_mesh"]["ms"], plain_ms=t["mesh_mesh"]["plain_ms"],
              bound_ms=t["mesh_mesh"]["bound_ms"],
              bound_by=t["mesh_mesh"]["bound_by"], library_ms=None),
         dict(name="mtv_query", route="cuda", source=src + "mtv_query.cu",
              replaces="mujoco_sim_tpu/ops/pallas_refine.py:73",
-             launches=counts["mtv_query"], max_abs_err=worst["mtv_query"],
+             launches=counts["mtv_query"],
+             launches_precise_path=pcounts["mtv_query"],
+             max_abs_err=worst["mtv_query"],
              ms=t["mtv_query"]["ms"], plain_ms=t["mtv_query"]["plain_ms"],
              bound_ms=t["mtv_query"]["bound_ms"],
              bound_by=t["mtv_query"]["bound_by"], library_ms=None),
@@ -912,6 +1259,26 @@ def main(argv):
              bound_ms=t["support_minmax_C256"]["bound_ms"],
              bound_by=t["support_minmax_C256"]["bound_by"],
              library_ms=None),
+        # launched once per step of the precise path (qLD for noslip);
+        # timed on the mass matrices of that rollout's final state
+        dict(name="chol_factor", route="cuda", source=src + "chol_factor.cu",
+             replaces="benchmarks/pallas_chol_proto.py:24",
+             launches=pcounts["chol_factor"], max_abs_err=fact_err,
+             ms=fact_step_t["ms"], plain_ms=fact_step_t["plain_ms"],
+             bound_ms=fact_step_t["bound_ms"],
+             bound_by=fact_step_t["bound_by"],
+             library_ms=fact_step_t["library_ms"],
+             ms_random_n42_N1024=fact_t[(42, MANIP_NENV)]["ms"]),
+        # no step calls it: its path is its own entry point
+        # (scripts/torch_sat_proto.py), driven in face_sat_vs_plain with
+        # the count set to 0 just before and read just after
+        dict(name="face_sat_depth", route="cuda", source=src + "face_sat.cu",
+             replaces="benchmarks/pallas_sat_proto.py:28",
+             launches=fsat_launches,
+             launches_precise_step=pcounts["face_sat_depth"],
+             max_abs_err=fsat_err, ms=fsat_t["ms"],
+             plain_ms=fsat_t["plain_ms"], bound_ms=fsat_t["bound_ms"],
+             bound_by=fsat_t["bound_by"], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

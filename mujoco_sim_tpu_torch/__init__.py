@@ -11,7 +11,8 @@ Imports torch and numpy only (never jax or mujoco_sim_tpu).  Typical use::
 """
 
 from mujoco_sim_tpu_torch.engine import (  # noqa: F401
-    put_model, make_data, forward, step, step_with_control, set_const,
+    put_model, make_data, forward, step, step1, step2, step_with_control,
+    inverse, set_const,
 )
 from mujoco_sim_tpu_torch.models.compile import load_model  # noqa: F401
 from mujoco_sim_tpu_torch.models.model import Model, Data  # noqa: F401

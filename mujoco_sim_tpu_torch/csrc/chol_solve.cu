@@ -25,14 +25,13 @@
 //
 // Build (no PyTorch headers; loaded with ctypes by ops/chol.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-#include <cuda_runtime.h>
+//
+// The factor loop lives in chol_factor.cuh, shared with chol_factor.cu.
+#include "chol_factor.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kMaxN = 64;
-constexpr int kMaxWarpsPerBlock = 8;
-constexpr int kSmemBudget = 48 * 1024;  // no opt-in attribute needed
+using namespace cholk;
 
 __global__ void chol_solve_kernel(const float* __restrict__ A,
                                   const float* __restrict__ b,
@@ -50,27 +49,12 @@ __global__ void chol_solve_kernel(const float* __restrict__ A,
   const float* bs = b + static_cast<long long>(sys) * n;
   float* xs = x + static_cast<long long>(sys) * n;
 
-  for (int t = lane; t < n * n; t += kWarp) a[(t / n) * ld + t % n] = As[t];
+  load_matrix(a, As, n, ld, lane);
   for (int t = lane; t < n; t += kWarp) y[t] = bs[t];
   __syncwarp();
 
   // right-looking column Cholesky fused with the forward substitution
-  for (int j = 0; j < n; ++j) {
-    const float piv = sqrtf(fmaxf(a[j * ld + j], 1e-30f));
-    const float inv = 1.0f / piv;
-    const float yj = y[j] * inv;
-    __syncwarp();
-    for (int i = j + lane; i < n; i += kWarp) a[i * ld + j] *= inv;
-    if (lane == 0) y[j] = yj;
-    __syncwarp();
-    // trailing update of the lower triangle: a[i][k] -= l_ij * l_kj
-    for (int i = j + 1 + lane; i < n; i += kWarp) {
-      const float lij = a[i * ld + j];
-      for (int k = j + 1; k <= i; ++k) a[i * ld + k] -= lij * a[k * ld + j];
-      y[i] -= lij * yj;
-    }
-    __syncwarp();
-  }
+  factor_warp<true>(a, y, n, ld, lane);
 
   // backward substitution L^T x = y (column-oriented, descending)
   for (int j = n - 1; j >= 0; --j) {
@@ -91,11 +75,9 @@ extern "C" int chol_solve_f32(const float* A, const float* b, float* x, int N,
                               int n, void* stream) {
   if (n < 1 || n > kMaxN || N < 0) return 1;
   if (N == 0) return 0;
-  const int ld = (n % 2 == 0) ? n + 1 : n;
+  const int ld = row_stride(n);
   const int per_warp = (n * ld + n) * static_cast<int>(sizeof(float));
-  int warps = kSmemBudget / per_warp;
-  if (warps > kMaxWarpsPerBlock) warps = kMaxWarpsPerBlock;
-  if (warps < 1) warps = 1;
+  const int warps = warps_per_block(per_warp);
   const int blocks = (N + warps - 1) / warps;
   chol_solve_kernel<<<blocks, warps * kWarp, warps * per_warp,
                       static_cast<cudaStream_t>(stream)>>>(A, b, x, N, n, ld);

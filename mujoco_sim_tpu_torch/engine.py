@@ -1,4 +1,4 @@
-"""Public engine API: put_model, make_data, forward, step.
+"""Public engine API: put_model, make_data, forward, step, inverse.
 
 Torch port of mujoco_sim_tpu/engine.py.  All functions are pure,
 ``d' = f(m, d)``; batching is an explicit leading env axis on every Data
@@ -10,11 +10,14 @@ Newton direction) go through ops/chol.chol_solve, which launches the
 hand-written CUDA kernel for CUDA tensors and takes its plain twin for CPU
 tensors: the path is chosen by device, not by a switch.  With the kernel,
 ``qLD`` stays all-zero (the factor is fused into each solve and never
-materialized), as on the JAX package's TPU path.
+materialized), as on the JAX package's TPU path; only with
+``noslip_iterations > 0`` is the factor itself needed, and then ``qLD`` is
+the real factor on every device (ops/chol_factor: a second hand-written
+kernel on the card).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-site and tendon transmissions, tendons, sensors, equality rows,
-heightfields, the elliptic cone, noslip, RK4 and the implicit integrators.
+site and tendon transmissions, tendons (with their rows and sensors),
+heightfields and fluid drag.
 """
 
 from __future__ import annotations
@@ -75,9 +78,12 @@ def put_model(m: Model, dtype=torch.float32, device="cuda") -> Model:
     return map_leaves(cast, m).replace(layout=m.layout.to(device))
 
 
-def make_data(m: Model, nenv: int, dtype=None) -> Data:
+def make_data(m: Model, nenv: int, dtype=None, keyframe=None) -> Data:
     """Fresh Data at qpos0 for ``nenv`` envs (mj_makeData + reset), every
-    leaf with a leading env axis, on the model's device."""
+    leaf with a leading env axis, on the model's device.
+
+    keyframe: optional <keyframe><key> name or index; every env of the
+    returned Data starts from that snapshot (mj_resetDataKeyframe)."""
     dtype = m.dtype if dtype is None else dtype
     dev = m.device
     B = nenv
@@ -108,7 +114,7 @@ def make_data(m: Model, nenv: int, dtype=None) -> Data:
         dtype)
     xquat = z(nbody, 4)
     xquat[..., 0] = 1.0
-    return Data(
+    d = Data(
         time=z(),
         qpos=tile(m.qpos0),
         qvel=z(nv), qacc=z(nv), qacc_warmstart=z(nv),
@@ -147,6 +153,17 @@ def make_data(m: Model, nenv: int, dtype=None) -> Data:
         sensordata=z(m.nsensordata),
         energy=z(2),
     )
+    if keyframe is not None:
+        kid = (m.names.key_id(keyframe) if isinstance(keyframe, str)
+               else int(keyframe))
+        if kid < 0 or kid >= m.nkey:
+            raise ValueError(f"unknown keyframe {keyframe!r}")
+        d = d.replace(
+            time=tile(m.key_time[kid]), qpos=tile(m.key_qpos[kid]),
+            qvel=tile(m.key_qvel[kid]), act=tile(m.key_act[kid]),
+            ctrl=tile(m.key_ctrl[kid]), mocap_pos=tile(m.key_mpos[kid]),
+            mocap_quat=tile(m.key_mquat[kid]))
+    return d
 
 
 def set_const(m: Model) -> Model:
@@ -211,15 +228,13 @@ def fwd_position(m: Model, d: Data) -> Data:
     kin = smooth.kinematics(m, d.qpos, d.mocap_pos, d.mocap_quat)
     com = smooth.com_pos(m, kin, d.body_mass, d.body_inertia)
     qM = smooth.crb(m, com)
-    if m.opt.noslip_iterations > 0:
-        raise NotImplementedError(
-            "noslip is not ported yet (ROADMAP §A.7); it needs the qLD "
-            "factor that the kernel path leaves at zero")
-    if qM.device.type == "cuda":
+    if qM.device.type == "cuda" and m.opt.noslip_iterations == 0:
         # the factor is fused into each kernel solve (chol_solve); qLD
-        # stays ZERO, as on the JAX package's TPU path
+        # stays ZERO, as on the JAX package's TPU path.  Only noslip's
+        # matrix-RHS solve needs the factor itself.
         qLD = torch.zeros_like(qM)
     else:
+        # CUDA: the hand-written chol_factor kernel; CPU: linalg.cholesky
         qLD = smooth.factor_chol(qM)
     d = d.replace(
         xpos=kin["xpos"], xquat=kin["xquat"], xipos=kin["xipos"],
@@ -435,7 +450,11 @@ def fwd_constraint(m: Model, d: Data) -> Data:
     if m.nefc_max == 0 or (m.opt.disableflags & int(DisableBit.CONSTRAINT)):
         return d.replace(qacc=d.qacc_smooth,
                          qfrc_constraint=torch.zeros_like(d.qacc_smooth))
-    return solver_mod.solve(m, d)
+    d = solver_mod.solve(m, d)
+    if m.opt.noslip_iterations > 0:
+        from mujoco_sim_tpu_torch.ops import noslip as noslip_mod
+        d = noslip_mod.noslip(m, d)
+    return d
 
 
 def forward_core(m: Model, d: Data) -> Data:
@@ -523,12 +542,94 @@ def _advance_act(m: Model, d: Data, h) -> torch.Tensor:
     return act
 
 
+def _implicit(m: Model, d: Data, fast: bool) -> Data:
+    """mj_implicit / mj_implicitFast: integrate velocity implicitly using
+    d(qfrc)/d(qvel).  implicitfast keeps only the passive-damping derivative
+    (with no tendons/actuators/fluid that is diag(dof_damping), making it
+    coincide with mj_Euler's implicit-damping form); full implicit also
+    differentiates the RNE bias Coriolis term, by forward-mode AD of
+    ops/smooth.com_vel + rne: nv ``torch.func.jvp`` columns (one unit
+    tangent per dof, shared by all envs, since envs are independent),
+    stacked into the (B, nv, nv) Jacobian.  The modified matrix is
+    nonsymmetric, so a general LU solve (torch.linalg.solve) is used.
+    Fluid and tendon terms are not ported (ROADMAP §A.7): such models
+    raise earlier, in fwd_position / fwd_velocity."""
+    dtype = d.qpos.dtype
+    h = m.opt.timestep.to(dtype)
+    MhB = d.qM + torch.diag(h * m.dof_damping.to(dtype))
+    rhs = d.qfrc_smooth + d.qfrc_constraint
+    if fast:
+        qacc = chol.chol_solve(MhB, rhs)
+    else:
+        com_full = dict(_com_dict(m, d), cinert=_cinert(m, d))
+
+        def frc_of_v(v):
+            # the velocity-dependent force whose derivative enters the
+            # implicit matrix: the RNE bias (mjd_smooth_vel)
+            vel = smooth.com_vel(m, com_full, v)
+            return smooth.rne(m, com_full, vel, v)
+
+        cols = []
+        for j in range(m.nv):
+            tangent = torch.zeros_like(d.qvel)
+            tangent[:, j] = 1.0
+            cols.append(torch.func.jvp(frc_of_v, (d.qvel,), (tangent,))[1])
+        dfrc_dv = torch.stack(cols, dim=-1)   # (B, nv, nv), nonsymmetric
+        qacc = torch.linalg.solve(MhB + h * dfrc_dv, rhs)
+    qvel = torch.where(_dof_active(m, d), d.qvel + h * qacc, 0.0)
+    qpos = integrate_mod.integrate_pos(m, d.qpos, qvel, h)
+    return d.replace(qpos=qpos, qvel=qvel, act=_advance_act(m, d, h),
+                     time=d.time + h)
+
+
+_RK4_A = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
+_RK4_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+
+
+def _rk4(m: Model, d: Data) -> Data:
+    """mj_RungeKutta(4): stages re-run forward_core; pos via manifold
+    update."""
+    h = m.opt.timestep.to(d.qpos.dtype)
+    qpos0, qvel0, act0 = d.qpos, d.qvel, d.act
+    F = [(d.qvel, d.qacc, d.act_dot)]
+    dcur = d
+    for i in range(3):
+        dq = sum(a * f[0] for a, f in zip(_RK4_A[i], F) if a)
+        dv = sum(a * f[1] for a, f in zip(_RK4_A[i], F) if a)
+        qpos_i = integrate_mod.integrate_pos(m, qpos0, dq, h)
+        qvel_i = qvel0 + h * dv
+        # seed each stage's solver with the previous stage's solution:
+        # stage states are close, cutting lockstep Newton iterations
+        dcur = dcur.replace(qpos=qpos_i, qvel=qvel_i,
+                            qacc_warmstart=dcur.qacc)
+        if m.nu:
+            da = sum(a * f[2] for a, f in zip(_RK4_A[i], F) if a)
+            dcur = dcur.replace(act=act0 + h * da)
+        dcur = forward_core(m, dcur)
+        F.append((dcur.qvel, dcur.qacc, dcur.act_dot))
+    dq = sum(b * f[0] for b, f in zip(_RK4_B, F))
+    dv = sum(b * f[1] for b, f in zip(_RK4_B, F))
+    act = _dof_active(m, d)
+    qpos = integrate_mod.integrate_pos(m, qpos0, torch.where(act, dq, 0.0), h)
+    qvel = torch.where(act, qvel0 + h * dv, 0.0)
+    if m.nu:
+        act_new = _advance_act(
+            m, d.replace(act=act0,
+                         act_dot=sum(b * f[2] for b, f in zip(_RK4_B, F))),
+            h)
+    else:
+        act_new = d.act
+    return d.replace(qpos=qpos, qvel=qvel, act=act_new, time=d.time + h)
+
+
 def _integrate(m: Model, d: Data) -> Data:
     d = d.replace(qacc_warmstart=d.qacc)
-    if m.opt.integrator != int(Integrator.EULER):
-        raise NotImplementedError(
-            f"integrator {Integrator(m.opt.integrator).name} is not ported "
-            "yet (ROADMAP §A.7)")
+    if m.opt.integrator == int(Integrator.RK4):
+        return _rk4(m, d)
+    if m.opt.integrator == int(Integrator.IMPLICIT):
+        return _implicit(m, d, fast=False)
+    if m.opt.integrator == int(Integrator.IMPLICITFAST):
+        return _implicit(m, d, fast=True)
     return _euler(m, d)
 
 
@@ -561,3 +662,19 @@ def step_with_control(m: Model, d: Data, ctrl_fn, *ctrl_args):
     d, aux = ctrl_fn(m, d, *ctrl_args)
     d = step2(m, d)
     return d, aux
+
+
+def inverse(m: Model, d: Data, qacc: torch.Tensor) -> torch.Tensor:
+    """Inverse dynamics: applied generalized force (B, nv) that would
+    produce qacc (B, nv) (mj_inverse equivalent; used for effort feedback).
+
+    The constraint force is evaluated from the GIVEN qacc by the inverse
+    constraint solver (jar = J qacc - aref -> analytic per-row force),
+    matching mj_inverse for arbitrary (state, qacc) queries; reusing the
+    carried qfrc_constraint is only correct at the solved state."""
+    from mujoco_sim_tpu_torch.ops.solver import constraint_force_from_qacc
+    d = fwd_position(m, d)
+    d = fwd_velocity(m, d)
+    _, qfrc_constraint = constraint_force_from_qacc(m, d, qacc)
+    return (smooth.mul_m(m, d.qM, qacc) + d.qfrc_bias - d.qfrc_passive
+            - qfrc_constraint)

@@ -1,4 +1,4 @@
-"""Constraint row assembly: dof friction, joint limits, contacts.
+"""Constraint row assembly: equality, dof friction, limits, contacts.
 
 Port of mujoco_sim_tpu/ops/constraint.py over an explicit leading env axis.
 Implements MuJoCo's soft-constraint model (impedance d(r) from solimp,
@@ -8,8 +8,9 @@ with *static* row layout: every potential row owns a fixed slot
 built as per-section blocks and concatenated in the compile-time address
 order (equality, dof friction, limits, contacts).
 
-Equality rows and tendon-limit rows are not ported yet (ROADMAP §A.7) and
-raise; so does the elliptic cone (ROADMAP §A.7).
+Equality rows cover connect, weld and joint (polycoef) equalities, contact
+rows both friction cones.  Tendon equalities and tendon-limit rows are not
+ported yet (ROADMAP §A.7) and raise.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from mujoco_sim_tpu_torch.models.model import (Model, Data, DisableBit,
-                                                ConeType, contact_rows_per)
+                                                ConeType, EqType,
+                                                contact_rows_per)
 from mujoco_sim_tpu_torch.ops import math as mm
 
 _MINIMP, _MAXIMP = 0.0001, 0.9999
@@ -83,6 +85,57 @@ def _onehot_rows(idx: np.ndarray, nv: int) -> np.ndarray:
     return B
 
 
+def _eq_plan_np(m: Model) -> dict:
+    """Static equality-section plan: per-type index arrays, constant
+    one-hot bases for joint couples, and the permutation restoring
+    compile-time (interleaved) row order from [JOINT | CONNECT | WELD]
+    block order."""
+    lay = m.layout
+    nv = m.nv
+    et = lay.eq_type
+    jsel = np.nonzero(et == int(EqType.JOINT))[0]
+    csel = np.nonzero(et == int(EqType.CONNECT))[0]
+    wsel = np.nonzero(et == int(EqType.WELD))[0]
+    tsel = np.nonzero(et == int(EqType.TENDON))[0]
+    plan = dict(jsel=jsel, csel=csel, wsel=wsel, n_tendon=len(tsel),
+                c_o1=lay.eq_obj1id[csel], c_o2=lay.eq_obj2id[csel],
+                w_o1=lay.eq_obj1id[wsel], w_o2=lay.eq_obj2id[wsel])
+    if len(jsel):
+        o1 = lay.eq_obj1id[jsel]
+        o2 = lay.eq_obj2id[jsel]
+        has2 = o2 >= 0
+        o2s = np.where(has2, o2, 0)
+        nJ = len(jsel)
+        b1 = np.zeros((nJ, nv))
+        b1[np.arange(nJ), lay.jnt_dofadr[o1]] = 1.0
+        b2 = np.zeros((nJ, nv))
+        b2[np.arange(nJ), lay.jnt_dofadr[o2s]] = 1.0
+        b2[~has2] = 0.0
+        plan.update(j_qa1=lay.jnt_qposadr[o1], j_da1=lay.jnt_dofadr[o1],
+                    j_has2=has2, j_qa2=lay.jnt_qposadr[o2s],
+                    j_da2=lay.jnt_dofadr[o2s], j_body=lay.jnt_bodyid[o1],
+                    j_base1=b1, j_base2=b2)
+    # row permutation: dest row (relative to eq section) -> src row in
+    # the [J | T | C | W] block concat
+    rows_of = {int(EqType.JOINT): 1, int(EqType.TENDON): 1,
+               int(EqType.CONNECT): 3, int(EqType.WELD): 6}
+    src_of_eq = {}
+    cursor = 0
+    for grp in (jsel, tsel, csel, wsel):
+        for k in grp:
+            src_of_eq[int(k)] = cursor
+            cursor += rows_of[int(et[k])]
+    inv = np.zeros(cursor, dtype=np.int64)
+    base = lay.eq_efcadr[0] if len(et) else 0
+    for k in range(len(et)):
+        adr = lay.eq_efcadr[k] - base
+        for i in range(rows_of[int(et[k])]):
+            inv[adr + i] = src_of_eq[int(k)] + i
+    plan["perm"] = inv
+    plan["perm_is_identity"] = bool(np.all(inv == np.arange(cursor)))
+    return plan
+
+
 def _plan_np(m: Model) -> dict:
     lay = m.layout
     nv = m.nv
@@ -102,6 +155,16 @@ def _plan_np(m: Model) -> dict:
         # friction axis of each pyramidal row (+- pair per axis)
         plan["axis_of_row"] = np.repeat(np.arange(max(m.max_condim - 1, 0)),
                                         2)
+        # elliptic layout: one row per contact dimension; the friction
+        # rows (all but the first of each contact) take no position term
+        rp = contact_rows_per(m.max_condim, int(ConeType.ELLIPTIC))
+        plan["ell_row_idx"] = np.arange(m.max_condim)
+        fric_mask = np.zeros(m.nefc_max, dtype=bool)
+        if m.opt.cone == int(ConeType.ELLIPTIC) and m.max_condim > 1:
+            for kslot in range(m.ncon_max):
+                base = m.contact_efcadr + kslot * rp
+                fric_mask[base + 1: base + rp] = True
+        plan["ell_fric_mask"] = fric_mask
     return plan
 
 
@@ -112,19 +175,16 @@ def make_constraint(m: Model, d: Data, com: dict) -> Data:
     nefc, nv = m.nefc_max, m.nv
     if nefc == 0:
         return d
-    if m.neq:
-        raise NotImplementedError(
-            "equality constraint rows are not ported yet (ROADMAP §A.7)")
     if len(lay.tlim_tenid):
         raise NotImplementedError(
             "tendon-limit rows are not ported yet (ROADMAP §A.7)")
-    if m.ncon_max and m.opt.cone == int(ConeType.ELLIPTIC) \
-            and m.max_condim > 1:
-        raise NotImplementedError(
-            "the elliptic friction cone is not ported yet (ROADMAP §A.7)")
     B = d.qpos.shape[0]
     dev = d.qpos.device
-    plan = lay.const("constraint", lambda: _plan_np(m), dtype)
+    plan = lay.const(("constraint", m.opt.cone, m.contact_efcadr,
+                      m.ncon_max, m.max_condim, m.nefc_max),
+                     lambda: _plan_np(m), dtype)
+    elliptic = (m.ncon_max > 0 and m.opt.cone == int(ConeType.ELLIPTIC)
+                and m.max_condim > 1)
     binv = m.body_invweight0.to(dtype)
     dinv = m.dof_invweight0.to(dtype)
     disable = m.opt.disableflags
@@ -150,6 +210,118 @@ def make_constraint(m: Model, d: Data, com: dict) -> Data:
         secs["flossrow"].append(
             torch.zeros((B, n), dtype=torch.bool, device=dev)
             if flossrow is None else flossrow.expand(B, n))
+
+    # ---------------- equality ----------------
+    if m.neq:
+        ep = lay.const("eqplan", lambda: _eq_plan_np(m), dtype)
+        if ep["n_tendon"]:
+            raise NotImplementedError(
+                "tendon equality rows are not ported yet (ROADMAP §A.7)")
+        eq_off = (disable & int(DisableBit.EQUALITY)) != 0
+        eq_data = m.eq_data.to(dtype)
+        eq_solref = m.eq_solref.to(dtype)
+        eq_solimp = m.eq_solimp.to(dtype)
+        eq_act0 = m.eq_active0
+        origin = com["origin"]                         # (B, nbody, 3)
+        blocks = {k: [] for k in ("J", "pos", "solref", "solimp", "diag",
+                                  "active")}
+
+        def emit_eq(J, pos, solref, solimp, diag, active):
+            n = J.shape[1]
+            blocks["J"].append(J.expand(B, n, nv))
+            blocks["pos"].append(pos.expand(B, n))
+            blocks["solref"].append(solref.expand(B, n, 2))
+            blocks["solimp"].append(solimp.expand(B, n, 5))
+            blocks["diag"].append(diag.expand(B, n))
+            blocks["active"].append(active.expand(B, n))
+
+        if len(ep["jsel"]):
+            js = ep["jsel"]
+            has2 = ep["j_has2"]
+            qpos0 = m.qpos0.to(dtype)
+            q1 = d.qpos[:, ep["j_qa1"]] - qpos0[ep["j_qa1"]]
+            dx = torch.where(has2,
+                             d.qpos[:, ep["j_qa2"]] - qpos0[ep["j_qa2"]], 0.0)
+            # poly and its derivative (Horner)
+            c = eq_data[js][:, :5]
+            poly = (((c[:, 4] * dx + c[:, 3]) * dx + c[:, 2]) * dx
+                    + c[:, 1]) * dx + c[:, 0]
+            dpoly = ((4.0 * c[:, 4] * dx + 3.0 * c[:, 3]) * dx
+                     + 2.0 * c[:, 2]) * dx + c[:, 1]
+            dpoly = torch.where(has2, dpoly, 0.0)
+            rows = ep["j_base1"] - dpoly[..., None] * ep["j_base2"]
+            diag = dinv[ep["j_da1"]] + torch.where(has2, dinv[ep["j_da2"]],
+                                                   0.0)
+            active = eq_act0[js] & d.body_active[:, ep["j_body"]]
+            emit_eq(rows, q1 - poly, eq_solref[js][None], eq_solimp[js][None],
+                    diag[None], active)
+
+        if len(ep["csel"]):
+            cs, o1, o2 = ep["csel"], ep["c_o1"], ep["c_o2"]
+            data = eq_data[cs]
+            p1 = d.xpos[:, o1] + mm.rot_vec_quat(data[:, 0:3], d.xquat[:, o1])
+            p2 = d.xpos[:, o2] + mm.rot_vec_quat(data[:, 3:6], d.xquat[:, o2])
+            J1 = _point_jacobian(m, d.cdof, p1, o1, origin[:, o1])
+            J2 = _point_jacobian(m, d.cdof, p2, o2, origin[:, o2])
+            diag = torch.repeat_interleave(binv[o1, 0] + binv[o2, 0], 3)
+            active = torch.repeat_interleave(
+                eq_act0[cs] & d.body_active[:, o1], 3, dim=-1)
+            emit_eq((J1 - J2).reshape(B, -1, nv), (p1 - p2).reshape(B, -1),
+                    torch.repeat_interleave(eq_solref[cs], 3, dim=0)[None],
+                    torch.repeat_interleave(eq_solimp[cs], 3, dim=0)[None],
+                    diag[None], active)
+
+        if len(ep["wsel"]):
+            ws, o1, o2 = ep["wsel"], ep["w_o1"], ep["w_o2"]
+            data = eq_data[ws]
+            anchor = data[:, 0:3]
+            relpose_p = data[:, 3:6]
+            relpose_q = data[:, 6:10]
+            torquescale = data[:, 10]
+            xq1, xq2 = d.xquat[:, o1], d.xquat[:, o2]
+            p2 = d.xpos[:, o2] + mm.rot_vec_quat(anchor, xq2)
+            target = d.xpos[:, o1] + mm.rot_vec_quat(
+                relpose_p + mm.rot_vec_quat(anchor, relpose_q), xq1)
+            J2 = _point_jacobian(m, d.cdof, p2, o2, origin[:, o2])
+            J1 = _point_jacobian(m, d.cdof, target, o1, origin[:, o1])
+            rows_p = J2 - J1                         # (B, nW, 3, nv)
+            pos_p = p2 - target
+            q_target = mm.quat_mul(xq1, relpose_q)
+            q_err = mm.quat_mul(mm.quat_inv(q_target), xq2)
+            q_err = q_err * torch.where(q_err[..., 0:1] < 0, -1.0, 1.0)
+            pos_r = q_err[..., 1:] * torquescale[:, None]
+            Jr2 = _rot_jacobian(m, d.cdof, o2)
+            Jr1 = _rot_jacobian(m, d.cdof, o1)
+            Rt = mm.quat_to_mat(q_target).transpose(-1, -2)
+            rows_r = 0.5 * torch.einsum("zkij,zkjv->zkiv", Rt, Jr2 - Jr1) \
+                * torquescale[:, None, None]
+            rows = torch.cat([rows_p, rows_r], dim=2).reshape(B, -1, nv)
+            pos = torch.cat([pos_p, pos_r], dim=2).reshape(B, -1)
+            diag_p = (binv[o1, 0] + binv[o2, 0])[:, None].expand(-1, 3)
+            diag_r = ((binv[o1, 1] + binv[o2, 1])
+                      * torquescale * torquescale)[:, None].expand(-1, 3)
+            diag = torch.cat([diag_p, diag_r], dim=1).reshape(-1)
+            active = torch.repeat_interleave(
+                eq_act0[ws] & d.body_active[:, o1], 6, dim=-1)
+            emit_eq(rows, pos,
+                    torch.repeat_interleave(eq_solref[ws], 6, dim=0)[None],
+                    torch.repeat_interleave(eq_solimp[ws], 6, dim=0)[None],
+                    diag[None], active)
+
+        Jb = torch.cat(blocks["J"], dim=1)
+        posb = torch.cat(blocks["pos"], dim=1)
+        srb = torch.cat(blocks["solref"], dim=1)
+        sib = torch.cat(blocks["solimp"], dim=1)
+        diagb = torch.cat(blocks["diag"], dim=1)
+        actb = torch.cat(blocks["active"], dim=1)
+        if not ep["perm_is_identity"]:
+            p = ep["perm"]
+            Jb, posb, srb, sib, diagb, actb = (
+                Jb[:, p], posb[:, p], srb[:, p], sib[:, p], diagb[:, p],
+                actb[:, p])
+        if eq_off:
+            actb = torch.zeros_like(actb)
+        emit(Jb, posb, srb, sib, diagb, actb, 0)
 
     # ---------------- dof friction loss ----------------
     if len(lay.fri_dofid):
@@ -245,6 +417,23 @@ def make_constraint(m: Model, d: Data, com: dict) -> Data:
             rows = Jn[:, :, None, :]                   # (B,K,1,nv)
             diag_rows = invw[..., None]
             row_act = con_active[..., None]
+        elif elliptic:
+            # one row per contact dimension: [normal, t1, t2, tors, r1, r2].
+            # Friction-row regularization:
+            #   R_i = R_normal * mu0^2 / (impratio * mu_i^2)
+            # realized as diag_i = invw * mu0^2/(impratio mu_i^2) with the
+            # friction rows sharing the normal row's efc_pos (hence its
+            # impedance); the position term is removed from their aref below.
+            axes = torch.stack(fric_axes[: mc - 1], dim=2)  # (B,K,mc-1,nv)
+            mu = con.friction[..., : mc - 1]                # (B,K,mc-1)
+            mu0 = con.friction[..., 0:1]
+            impratio = m.opt.impratio.to(dtype)
+            rows = torch.cat([Jn[:, :, None, :], axes], dim=2)
+            diag_fric = (invw[..., None] * mu0 * mu0
+                         / (impratio * torch.clamp(mu * mu, min=1e-12)))
+            diag_rows = torch.cat([invw[..., None], diag_fric], dim=-1)
+            row_act = con_active[..., None] & (
+                plan["ell_row_idx"] < torch.clamp(con.dim, min=1)[..., None])
         else:
             axes = torch.stack(fric_axes[: mc - 1], dim=2)  # (B,K,mc-1,nv)
             mu = con.friction[..., : mc - 1]                # (B,K,mc-1)
@@ -289,6 +478,11 @@ def make_constraint(m: Model, d: Data, com: dict) -> Data:
     k, b, imp = kbi(efc_solref, efc_solimp, efc_pos)
     vel = torch.einsum("ziv,zv->zi", efc_J, d.qvel)
     aref = -b * vel - k * imp * efc_pos
+    if elliptic:
+        # elliptic friction rows: velocity damping only, no position term
+        # (they share the normal row's pos for impedance)
+        aref = torch.where(plan["ell_fric_mask"], aref + k * imp * efc_pos,
+                           aref)
     R = torch.clamp((1.0 - imp) / torch.clamp(imp, min=_MINIMP) * efc_diag,
                     min=1e-12)
     D = 1.0 / R

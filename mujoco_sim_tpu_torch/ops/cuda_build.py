@@ -8,7 +8,7 @@ rebuilds and an unchanged source does not.
 
 ``load(name)`` is what the wrappers call.  Its first call in a process
 builds ALL kernels in parallel (one nvcc per source, started together), so
-the first launch of any kernel pays one build wait, not four.
+the first launch of any kernel pays one build wait, not one per kernel.
 """
 
 from __future__ import annotations
@@ -33,17 +33,19 @@ _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # one rounding by default and the plain PyTorch twins do not, which can
 # turn an exact tie of the twin into a pick of the other index; without
 # contraction the kernels round like the twins.  chol_solve compares no
-# floats and keeps FMA.
+# floats and keeps FMA, and so does chol_factor, which shares its code.
 _NO_FMA = ("-fmad=false",)
 
 # kernel name -> (source file, extra flags)
 KERNELS = {
     "chol_solve": ("chol_solve.cu", ()),
+    "chol_factor": ("chol_factor.cu", ()),
     "hull_sat": ("hull_sat.cu", _NO_FMA),
     "mtv_query": ("mtv_query.cu", _NO_FMA),
     "support_minmax": ("support_minmax.cu", _NO_FMA),
+    "face_sat": ("face_sat.cu", _NO_FMA),
 }
-HEADERS = ("support.cuh",)
+HEADERS = ("support.cuh", "chol_factor.cuh")
 
 # name -> dict(path, seconds, ptxas) of the builds this process made or found
 BUILD_INFO: dict = {}

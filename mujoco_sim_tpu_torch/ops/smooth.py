@@ -443,8 +443,10 @@ def mul_m(m: Model, qM: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
 
 
 def factor_chol(qM: torch.Tensor) -> torch.Tensor:
-    from mujoco_sim_tpu_torch.ops import linalg
-    return linalg.cholesky(qM)
+    """Lower Cholesky factor of qM: the hand-written kernel for a CUDA
+    tensor, ops/linalg.cholesky for a CPU tensor (ops/chol_factor.py)."""
+    from mujoco_sim_tpu_torch.ops import chol_factor
+    return chol_factor.chol_factor(qM)
 
 
 def solve_chol(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Constraint solver: projected Newton on the primal soft-constraint problem.
 
-Port of the pyramidal path of mujoco_sim_tpu/ops/solver.py.  Solves
+Port of mujoco_sim_tpu/ops/solver.py.  Solves
 
   min_a  0.5 (a - a_smooth)' M (a - a_smooth) + sum_i c_i(J_i a - aref_i)
 
@@ -8,8 +8,14 @@ with per-row costs matching MuJoCo's convex formulation:
   equality rows     : 0.5 D x^2                  (two-sided)
   friction-loss rows: Huber(x; R*floss)          (linear tails +- floss)
   limit/contact rows: 0.5 D x^2 for x < 0 else 0 (one-sided, pyramidal)
+  elliptic contacts : zone cost on the whole contact block (below)
 
-The elliptic cone is ROADMAP §A.7 and raises.
+Elliptic cones: with whitened friction coords
+v_i = x_i * sqrt(impratio) * mu_i / mu0, T = |v|, and solver coefficient
+mu_v = mu0/sqrt(impratio):
+  top zone    N >= mu_v T         : cost 0
+  bottom zone T <= -mu_v N        : cost 0.5 D0 (N^2 + T^2)
+  middle zone                     : cost 0.5 D0 (mu_v T - N)^2 / (1+mu_v^2)
 
 Batched loops.  The JAX solver is written per env; under vmap its
 ``lax.while_loop``s run the body for every env while ANY env's predicate
@@ -20,16 +26,45 @@ result equals its unbatched result.  Finished envs may compute garbage
 (even NaN) in the discarded branch; ``torch.where`` selects and never
 multiplies by a mask.  The ``.any()`` test is one host sync per Newton and
 per line-search iteration; that is accepted for now (CUDA-graph capture of
-the step is later work, ROADMAP).
+the step is later work, ROADMAP).  The elliptic line search's bracket
+expansion has a fixed cap of 8 doublings and runs all 8 masked, without a
+sync.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mujoco_sim_tpu_torch.models.model import (Model, Data, DisableBit,
-                                                ConeType)
+                                                ConeType, contact_rows_per)
 from mujoco_sim_tpu_torch.ops import chol
+
+
+def _is_elliptic(m: Model) -> bool:
+    return (m.opt.cone == int(ConeType.ELLIPTIC) and m.ncon_max > 0
+            and m.max_condim > 1)
+
+
+def _cone_plan_np(m: Model) -> dict:
+    rp = contact_rows_per(m.max_condim, m.opt.cone)
+    crows = (m.contact_efcadr
+             + np.arange(m.ncon_max)[:, None] * rp
+             + np.arange(rp)[None, :])
+    noncone = np.ones(m.nefc_max, dtype=bool)
+    noncone[crows.reshape(-1)] = False
+    return dict(crows=crows.astype(np.int64), noncone=noncone,
+                crows_flat=crows.reshape(-1).astype(np.int64),
+                fric_idx=np.arange(1, rp))
+
+
+def _cone_plan(m: Model, dtype) -> dict:
+    """Static elliptic-contact row layout as device tensors: crows (K, rp)
+    index gather, its flat form, and the non-cone row mask (made once per
+    layout)."""
+    key = ("cone", m.opt.cone, m.ncon_max, m.max_condim, m.contact_efcadr,
+           m.nefc_max)
+    return m.layout.const(key, lambda: _cone_plan_np(m), dtype)
 
 
 def _row_force_and_curv(d: Data, x: torch.Tensor, D: torch.Tensor):
@@ -61,6 +96,91 @@ def _row_cost(d: Data, x: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     return c
 
 
+class _EllipticCone:
+    """Zone cost/gradient/Hessian for the elliptic contact blocks.
+
+    Vectorized over envs and the K contact slots; inactive contacts have
+    D0 = 0 so they contribute nothing; frictionless contacts (dim==1)
+    reduce to the one-sided quadratic on the normal row.
+    """
+
+    def __init__(self, m: Model, d: Data, plan: dict):
+        dtype = d.qpos.dtype
+        con = d.contact
+        crows = plan["crows"]
+        rp = crows.shape[1]
+        self.rp = rp
+        fr = con.friction[..., : rp - 1]                  # (B, K, rp-1)
+        mu0 = torch.clamp(con.friction[..., 0], min=1e-12)
+        impratio = m.opt.impratio.to(dtype)
+        dim_ok = plan["fric_idx"] < con.dim[..., None]
+        self.s = torch.where(dim_ok,
+                             torch.sqrt(impratio) * fr / mu0[..., None], 0.0)
+        self.muv = mu0 / torch.sqrt(impratio)
+        self.frictionless = con.dim == 1
+        self.D0 = d.efc_D[:, crows[:, 0]]                 # 0 when inactive
+
+    def terms(self, x_c, need_hess=True):
+        """x_c (B, K, rp) -> (cost (B, K), grad (B, K, rp),
+        hess (B, K, rp, rp) or None)."""
+        rp = self.rp
+        N = x_c[..., 0]
+        v = x_c[..., 1:] * self.s                         # whitened coords
+        T2 = (v * v).sum(-1)
+        T = torch.sqrt(torch.clamp(T2, min=1e-24))
+        muv, D0 = self.muv, self.D0
+        top = N >= muv * T
+        bottom = T <= -muv * N
+        mid = ~top & ~bottom
+        Dm = D0 / (1.0 + muv * muv)
+        r = muv * T - N
+
+        s2 = self.s * self.s
+        s2x = x_c[..., 1:] * self.s * self.s              # s_i^2 x_i
+        # gradients per zone
+        g_bot = torch.cat([(D0 * N)[..., None], D0[..., None] * s2x], dim=-1)
+        gr = torch.cat([-torch.ones_like(N)[..., None],
+                        muv[..., None] * s2x / T[..., None]], dim=-1)
+        g_mid = (Dm * r)[..., None] * gr
+        zero = torch.zeros_like(x_c)
+        grad = torch.where(mid[..., None], g_mid,
+                           torch.where(bottom[..., None], g_bot, zero))
+        neg = N < 0
+        g_fl = torch.cat([torch.where(neg, D0 * N, 0.0)[..., None],
+                          torch.zeros_like(s2x)], dim=-1)
+        grad = torch.where(self.frictionless[..., None], g_fl, grad)
+
+        # cost per zone
+        c_mid = 0.5 * Dm * r * r
+        c_bot = 0.5 * D0 * (N * N + T2)
+        cost = torch.where(mid, c_mid, torch.where(bottom, c_bot, 0.0))
+        cost = torch.where(self.frictionless,
+                           torch.where(neg, 0.5 * D0 * N * N, 0.0), cost)
+        if not need_hess:
+            return cost, grad, None
+
+        # Hessians: bottom diag(D_i) with D_i = D0 s_i^2; middle = cone
+        eyep = torch.eye(rp, dtype=x_c.dtype, device=x_c.device)
+        D_bot = torch.cat([D0[..., None], D0[..., None] * s2], dim=-1)
+        H_bot = eyep * D_bot[..., None]
+        eyef = torch.eye(rp - 1, dtype=x_c.dtype, device=x_c.device)
+        d2r_f = (muv[..., None, None]
+                 * (eyef * s2[..., None, :] / T[..., None, None]
+                    - s2x[..., :, None] * s2x[..., None, :]
+                    / (T ** 3)[..., None, None]))
+        # d2r is zero in the normal row and column
+        d2r = torch.nn.functional.pad(d2r_f, (1, 0, 1, 0))
+        H_mid = Dm[..., None, None] * (
+            gr[..., :, None] * gr[..., None, :] + r[..., None, None] * d2r)
+        H = torch.where(mid[..., None, None], H_mid,
+                        torch.where(bottom[..., None, None], H_bot, 0.0))
+        H_fl = eyep * torch.cat(
+            [torch.where(neg, D0, 0.0)[..., None],
+             torch.zeros_like(self.s)], dim=-1)[..., None]
+        H = torch.where(self.frictionless[..., None, None], H_fl, H)
+        return cost, grad, H
+
+
 def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Per-env matrix-vector product (B, n, k) x (B, k) -> (B, n)."""
     return (A @ v[..., None])[..., 0]
@@ -71,24 +191,24 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum(-1)
 
 
-def _check_pyramidal(m: Model):
-    if m.opt.cone == int(ConeType.ELLIPTIC) and m.ncon_max > 0 \
-            and m.max_condim > 1:
-        raise NotImplementedError(
-            "the elliptic friction cone is not ported yet (ROADMAP §A.7)")
-
-
 def solve(m: Model, d: Data) -> Data:
-    _check_pyramidal(m)
     dtype = d.qpos.dtype
     M = d.qM
     a_smooth = d.qacc_smooth
     J = d.efc_J
     JT = J.transpose(-1, -2)
     aref = d.efc_aref
-    D = d.efc_D
     nv = M.shape[-1]
     eye = torch.eye(nv, dtype=dtype, device=M.device)
+
+    elliptic = _is_elliptic(m)
+    if elliptic:
+        cplan = _cone_plan(m, dtype)
+        crows = cplan["crows"]
+        D = torch.where(cplan["noncone"], d.efc_D, 0.0)
+        cone = _EllipticCone(m, d, cplan)
+    else:
+        D = d.efc_D
 
     warm = not (m.opt.disableflags & int(DisableBit.WARMSTART))
     a0 = d.qacc_warmstart if warm else a_smooth
@@ -99,13 +219,22 @@ def solve(m: Model, d: Data) -> Data:
     # x += alpha * Jp (exact: J(a + alpha p) - aref = x + alpha Jp), so the
     # cost evaluations are (nefc,) elementwise and never re-form J @ a.
     def rowcost_sum(x):
-        return _row_cost(d, x, D).sum(-1)
+        c = _row_cost(d, x, D).sum(-1)
+        if elliptic:
+            cc, _, _ = cone.terms(x[:, crows], need_hess=False)
+            c = c + cc.sum(-1)
+        return c
 
     def grad_hess(a, x):
         f, curv = _row_force_and_curv(d, x, D)
         Mda = _mv(M, a - a_smooth)
         grad = Mda + _mv(JT, f)
         H = M + torch.einsum("ziv,zi,ziw->zvw", J, curv, J)
+        if elliptic:
+            Jc = J[:, crows]                # (B, K, rp, nv) static row gather
+            _, gc, Hc = cone.terms(x[:, crows])
+            grad = grad + torch.einsum("zkrv,zkr->zv", Jc, gc)
+            H = H + torch.einsum("zkrv,zkrs,zksw->zvw", Jc, Hc, Jc)
         return grad, H, Mda
 
     def line_search(a, p, x0, Mda, live):
@@ -122,14 +251,27 @@ def solve(m: Model, d: Data) -> Data:
             return (c0M + alpha * pM_da + 0.5 * alpha * alpha * pMp
                     + rowcost_sum(x0 + alpha[:, None] * Jp))
 
-        def phi_d(alpha):
+        if elliptic:
+            Jpc = Jp[:, crows]              # (B, K, rp)
+            x0c = x0[:, crows]
+
+        def phi_d(alpha, need_d2=True):
+            """Slope and (unless need_d2 is off) curvature of phi at alpha;
+            the bracket expansion reads the slope alone and skips the cone
+            Hessians."""
             x = x0 + alpha[:, None] * Jp
             f, curv = _row_force_and_curv(d, x, D)
             d1 = pM_da + alpha * pMp + _dot(f, Jp)
-            d2 = pMp + _dot(curv, Jp * Jp)
+            d2 = pMp + _dot(curv, Jp * Jp) if need_d2 else None
+            if elliptic:
+                xc = x0c + alpha[:, None, None] * Jpc
+                _, gc, Hc = cone.terms(xc, need_hess=need_d2)
+                d1 = d1 + (gc * Jpc).sum((-1, -2))
+                if need_d2:
+                    d2 = d2 + torch.einsum("zkr,zkrs,zks->z", Jpc, Hc, Jpc)
             return d1, d2
 
-        d1_0, _ = phi_d(torch.zeros_like(pMp))
+        d1_0, _ = phi_d(torch.zeros_like(pMp), need_d2=False)
         # stop when the slope has dropped to ls_tolerance of its initial
         # magnitude (the analogue of MuJoCo's ls_tolerance)
         gtol = m.opt.ls_tolerance * torch.clamp(d1_0.abs(), min=1e-8)
@@ -138,6 +280,11 @@ def solve(m: Model, d: Data) -> Data:
         def c1(it, d1):
             return ((it < m.opt.ls_iterations) & (d1.abs() > gtol)
                     & torch.isfinite(d1))
+
+        if elliptic:
+            alpha, c_a, c_h = _bracket_search(phi_d, phi_cost, c1, pMp,
+                                              curv_floor, live)
+            return alpha, Jp, c_a, c_h
 
         # pyramidal: plain 1D Newton on phi' — a masked batched while loop
         # (envs outside `live` only ever produce discarded results)
@@ -211,15 +358,66 @@ def solve(m: Model, d: Data) -> Data:
                      efc_force=efc_force)
 
 
+def _bracket_search(phi_d, phi_cost, c1, pMp, curv_floor, live):
+    """Elliptic line search: phi is convex but has cone-zone kinks where
+    pure 1D Newton oscillates; phi' is nondecreasing, so bracket its root
+    then run safeguarded Newton-bisection.  Returns (alpha, cost(alpha),
+    cost(0.5)) per env."""
+    # expand: double hi while phi'(hi) < 0, at most 8 times.  The cap is
+    # fixed, so all 8 doublings run masked with no host sync.
+    lo = torch.zeros_like(pMp)
+    hi = torch.ones_like(pMp)
+    d1hi, _ = phi_d(hi, need_d2=False)
+    for _ in range(8):
+        grow = d1hi < 0
+        hi2 = hi * 2.0
+        d1n, _ = phi_d(hi2, need_d2=False)
+        lo = torch.where(grow, hi, lo)
+        hi = torch.where(grow, hi2, hi)
+        d1hi = torch.where(grow, d1n, d1hi)
+    # if phi' never turned positive, take the largest bracketed alpha
+    alpha = torch.where(d1hi < 0, hi, 0.5 * (lo + hi))
+
+    it = torch.zeros(pMp.shape, dtype=torch.int32, device=pMp.device)
+    d1 = torch.full_like(pMp, 1e30)
+    active = c1(it, d1) & live
+    while bool(active.any()):
+        d1n, d2n = phi_d(alpha)
+        lo_n = torch.where(d1n < 0, alpha, lo)
+        hi_n = torch.where(d1n < 0, hi, alpha)
+        newton = alpha - d1n / torch.maximum(d2n, curv_floor)
+        inside = (newton > lo_n) & (newton < hi_n) & torch.isfinite(newton)
+        alpha_n = torch.where(inside, newton, 0.5 * (lo_n + hi_n))
+        lo = torch.where(active, lo_n, lo)
+        hi = torch.where(active, hi_n, hi)
+        alpha = torch.where(active, alpha_n, alpha)
+        d1 = torch.where(active, d1n, d1)
+        it = torch.where(active, it + 1, it)
+        active = active & c1(it, d1)
+    alpha = torch.where(torch.isfinite(alpha), alpha, 0.0)
+    alpha = torch.clamp(alpha, 0.0, 256.0)
+    return alpha, phi_cost(alpha), phi_cost(torch.full_like(pMp, 0.5))
+
+
 def constraint_force_from_qacc(m: Model, d: Data, qacc: torch.Tensor,
                                jar: torch.Tensor | None = None):
     """Constraint force for a GIVEN qacc (B, nv) — the inverse constraint
     solver (mj_invConstraint): jar = J qacc - aref, force = -dcost/djar per
     row.  ``jar`` may be passed by the forward solver, which carries it."""
-    _check_pyramidal(m)
     J = d.efc_J
+    elliptic = _is_elliptic(m)
+    if elliptic:
+        cplan = _cone_plan(m, d.qpos.dtype)
+        D = torch.where(cplan["noncone"], d.efc_D, 0.0)
+    else:
+        D = d.efc_D
     x = (_mv(J, qacc) - d.efc_aref) if jar is None else jar
-    f, _ = _row_force_and_curv(d, x, d.efc_D)
+    f, _ = _row_force_and_curv(d, x, D)
     efc_force = -f
+    if elliptic:
+        cone = _EllipticCone(m, d, cplan)
+        _, gc, _ = cone.terms(x[:, cplan["crows"]], need_hess=False)
+        efc_force = efc_force.index_copy(
+            1, cplan["crows_flat"], -gc.reshape(gc.shape[0], -1))
     qfrc_constraint = _mv(J.transpose(-1, -2), efc_force)
     return efc_force, qfrc_constraint

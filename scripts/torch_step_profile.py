@@ -1,9 +1,10 @@
 """Where one step of the PyTorch/CUDA port spends its time, on the card.
 
-    PYTHONPATH=. python3 scripts/torch_step_profile.py [manip|box] [nenv]
+    PYTHONPATH=. python3 scripts/torch_step_profile.py [manip|box|precise] [nenv]
 
 Runs `warm` stirred steps of the scene (default manip_bin6.xml @1024,
-float32) to reach a state in contact, then measures, on that state:
+float32; ``precise`` is manip_bin6_precise.xml @1024: elliptic cone, noslip,
+sensors) to reach a state in contact, then measures, on that state:
 
 * the host wall time of a plain step (median of 20, each ended by a
   synchronize);
@@ -36,11 +37,13 @@ sys.path.insert(0, ROOT)
 
 import mujoco_sim_tpu_torch as mst  # noqa: E402
 from mujoco_sim_tpu_torch import engine  # noqa: E402
-from mujoco_sim_tpu_torch.ops import (chol, collision, constraint, hull_sat,  # noqa: E402
-                                      mtv_query, smooth, solver)
+from mujoco_sim_tpu_torch.ops import (chol, chol_factor, collision,  # noqa: E402
+                                      constraint, hull_sat, mtv_query, noslip,
+                                      sensor, smooth, solver)
 
-SCENES = {"manip": ("manip_bin6.xml", 1024, 150), "box": ("floor_box.xml",
-                                                          4096, 300)}
+SCENES = {"manip": ("manip_bin6.xml", 1024, 150),
+          "precise": ("manip_bin6_precise.xml", 1024, 150),
+          "box": ("floor_box.xml", 4096, 300)}
 
 
 def _sync_time(fn):
@@ -104,7 +107,11 @@ def main():
     dacc = stage("fwd_acceleration",
                  lambda: engine.fwd_acceleration(m, dact))
     dsol = stage("constraint_solve", lambda: solver.solve(m, dacc))
+    if m.opt.noslip_iterations > 0:
+        dsol = stage("noslip", lambda: noslip.noslip(m, dsol))
     dene = stage("sensor_energy", lambda: engine.sensor_energy(m, dsol))
+    if m.nsensor:
+        stage("sensors_alone", lambda: sensor.sensors(m, dsol))
     stage("euler", lambda: engine._euler(m, dene))
 
     # ---- host syncs per step
@@ -117,7 +124,7 @@ def main():
     syncs = sum("synchroniz" in str(w.message).lower() for w in caught) / 3
 
     # ---- kernels and device time per step
-    for mod in (chol, hull_sat, mtv_query):
+    for mod in (chol, chol_factor, hull_sat, mtv_query):
         mod.LAUNCHES = 0
     nprof = 5
     with torch.profiler.profile(activities=[
@@ -127,6 +134,7 @@ def main():
             one_step(d)
         torch.cuda.synchronize()
     hand = dict(chol_solve=chol.LAUNCHES / nprof,
+                chol_factor=chol_factor.LAUNCHES / nprof,
                 hull_ref_face_depth=hull_sat.LAUNCHES / nprof,
                 mtv_query=mtv_query.LAUNCHES / nprof)
     ev = [e for e in prof.events()
@@ -164,13 +172,15 @@ def _position_head(m, d):
     kin = smooth.kinematics(m, d.qpos, d.mocap_pos, d.mocap_quat)
     com = smooth.com_pos(m, kin, d.body_mass, d.body_inertia)
     qM = smooth.crb(m, com)
+    qLD = (smooth.factor_chol(qM) if m.opt.noslip_iterations > 0
+           else torch.zeros_like(qM))
     d = d.replace(
         xpos=kin["xpos"], xquat=kin["xquat"], xipos=kin["xipos"],
         ximat=kin["ximat"], xanchor=kin["xanchor"], xaxis=kin["xaxis"],
         geom_xpos=kin["geom_xpos"], geom_xmat=kin["geom_xmat"],
         site_xpos=kin["site_xpos"], site_xmat=kin["site_xmat"],
         subtree_com=com["subtree_com"], cdof=com["cdof"],
-        qM=qM, qLD=torch.zeros_like(qM))
+        qM=qM, qLD=qLD)
     return d, com
 
 

@@ -12,8 +12,8 @@ import pytest
 import torch
 
 import mujoco_sim_tpu_torch as mst
-from mujoco_sim_tpu_torch.ops import (chol, hull_sat, manifold, mtv_query,
-                                      support_minmax)
+from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat, hull_sat,
+                                      manifold, mtv_query, support_minmax)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 
@@ -225,3 +225,143 @@ def test_manip_rollout_on_card_runs_the_collision_kernels(cuda_device):
     pos = torch.stack([d.qpos[:, 6 + 7 * i:9 + 7 * i] for i in range(6)], 1)
     assert bool((pos[..., :2].abs() < 0.34).all() & (pos[..., 2] > 0).all())
     assert int(d.ncon.min()) >= 8
+
+
+# ------------------------------------------- chol_factor, face_sat_depth
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,n", [(4096, 6), (1024, 42), (256, 49), (130, 64),
+                                 (1, 1)])
+def test_chol_factor_kernel_matches_plain_twin(N, n, cuda_device):
+    """f32 kernel vs f32 twin (ops/linalg.cholesky): 2e-5 absolute plus
+    relative, the band of chol_solve; zeros above the diagonal."""
+    rng = np.random.default_rng(n)
+    A = torch.tensor(_spd_batch(rng, N, n), dtype=torch.float32,
+                     device=cuda_device)
+    before = chol_factor.LAUNCHES
+    L = chol_factor.chol_factor(A)
+    torch.cuda.synchronize()
+    assert chol_factor.LAUNCHES == before + 1
+    assert bool((torch.triu(L, 1) == 0).all())
+    torch.testing.assert_close(L, chol_factor.chol_factor_plain(A),
+                               rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(L, torch.linalg.cholesky(A), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_chol_factor_kernel_stiff_and_batched(cuda_device):
+    rng = np.random.default_rng(0)
+    A = _spd_batch(rng, 15, 12)
+    A[:, 0, 0] += 1e9                        # stiff Newton-Hessian rows
+    At = torch.tensor(A.reshape(5, 3, 12, 12), dtype=torch.float32,
+                      device=cuda_device)
+    L = chol_factor.chol_factor(At)
+    assert L.shape == At.shape and bool(torch.isfinite(L).all())
+    torch.testing.assert_close(L, chol_factor.chol_factor_plain(At),
+                               rtol=2e-5, atol=2e-5)
+    resid = (L @ L.transpose(-1, -2) - At).abs().amax((-1, -2)) / 1e9
+    assert float(resid.max()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_chol_factor_wrapper_rejects_what_it_cannot_take(cuda_device):
+    A = torch.eye(3, device=cuda_device).expand(2, 3, 3)
+    before = chol_factor.LAUNCHES
+    with pytest.raises(ValueError):                     # not contiguous
+        chol_factor.chol_factor(A)
+    with pytest.raises(TypeError):                      # not float32
+        chol_factor.chol_factor(A.double().contiguous())
+    with pytest.raises(ValueError):                     # n > 64
+        chol_factor.chol_factor(torch.eye(65, device=cuda_device)[None])
+    with pytest.raises(ValueError):                     # not square
+        chol_factor.chol_factor(torch.ones(2, 3, 4, device=cuda_device))
+    with pytest.raises(ValueError):                     # a CPU tensor
+        chol_factor.chol_factor_cuda(torch.eye(3)[None])
+    assert chol_factor.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,F", [(8, 12), (32, 60), (80, 144)])
+@pytest.mark.parametrize("K", [2, 4])
+def test_face_sat_kernel_matches_plain_twin(V, F, K, cuda_device):
+    """Random, masked and exactly tied inputs (two identical faces, two
+    identical vertices, an instance with every point masked): every index
+    equal, values within 1e-6 + 1e-5 relative."""
+    rng = np.random.default_rng(V + K)
+    for N in (130, 8192):
+        pts, planes, mask, _ = _hull_inputs(rng, N, V, F, cuda_device)
+        planes[::3, F - 1] = planes[::3, 1]
+        pts[::4, V - 1] = pts[::4, 2]
+        mask[::4, V - 1] = mask[::4, 2] = 1.0
+        mask[1] = 0.0
+        before = face_sat.LAUNCHES
+        out = face_sat.face_sat_depth(pts, planes, mask, K)
+        torch.cuda.synchronize()
+        assert face_sat.LAUNCHES == before + 1
+        ref = face_sat.face_sat_depth_plain(pts, planes, mask, K)
+        assert out[1].dtype == torch.int32
+        assert bool((out[1] == ref[1]).all())
+        for a, b in ((out[0], ref[0]), (out[2], ref[2]), (out[3], ref[3])):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        assert bool((out[1][1] == 0).all() & (out[0][1] == 1e9).all())
+
+
+@pytest.mark.cuda
+def test_face_sat_wrapper_rejects_what_it_cannot_take(cuda_device):
+    pts = torch.zeros(4, 8, 3, device=cuda_device)
+    planes = torch.zeros(4, 12, 4, device=cuda_device)
+    mask = torch.ones(4, 8, device=cuda_device)
+    before = face_sat.LAUNCHES
+    with pytest.raises(TypeError):                      # not float32
+        face_sat.face_sat_depth(pts.double(), planes.double(), mask.double())
+    with pytest.raises(ValueError):                     # K > V
+        face_sat.face_sat_depth(pts, planes, mask, 9)
+    with pytest.raises(ValueError):                     # mask shape
+        face_sat.face_sat_depth(pts, planes, mask[:, :7])
+    with pytest.raises(ValueError):                     # not contiguous
+        face_sat.face_sat_depth(pts.transpose(0, 1).contiguous()
+                                .transpose(0, 1), planes, mask)
+    with pytest.raises(ValueError):                     # a CPU tensor
+        face_sat.face_sat_depth_cuda(pts.cpu(), planes.cpu(), mask.cpu())
+    assert face_sat.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_precise_rollout_on_card_factors_once_per_step(cuda_device):
+    """20 stirred steps of manip_bin6_precise at 32 envs, f32 on the card:
+    chol_factor launches once per step and qLD is the factor of qM; the
+    sensors read finite values."""
+    m = mst.put_model(mst.load_model(
+        str(FIXTURES / "manip_bin6_precise.xml")))
+    d = mst.make_data(m, 32)
+    phase = torch.tensor(np.random.default_rng(1).uniform(0, 6.28, (32, m.nu)),
+                         dtype=torch.float32, device=cuda_device)
+    before = chol_factor.LAUNCHES, hull_sat.LAUNCHES, face_sat.LAUNCHES
+    d = mst.rollout(m, d, 20,
+                    ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
+                                                 + phase))
+    torch.cuda.synchronize()
+    assert chol_factor.LAUNCHES - before[0] == 20
+    assert hull_sat.LAUNCHES - before[1] == 2 * 20
+    assert face_sat.LAUNCHES == before[2]          # no step calls it
+    torch.testing.assert_close(d.qLD @ d.qLD.transpose(-1, -2), d.qM,
+                               rtol=1e-4, atol=1e-5)
+    assert d.sensordata.shape == (32, 31)
+    assert bool(torch.isfinite(d.sensordata).all())
+    assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["RK4", "IMPLICIT", "IMPLICITFAST"])
+def test_integrators_on_card(integrator, cuda_device):
+    from mujoco_sim_tpu_torch.models.model import Integrator
+    m = mst.put_model(mst.load_model(str(FIXTURES / "floor_box.xml")))
+    m = m.replace(opt=m.opt.replace(
+        integrator=int(getattr(Integrator, integrator))))
+    d = mst.make_data(m, 64)
+    qpos = d.qpos.clone()
+    qpos[:, 2] = 0.1
+    d = mst.rollout(m, d.replace(qpos=qpos), 20)
+    assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
+    assert float(d.qvel.abs().max()) < 0.5 and int(d.ncon.min()) > 0

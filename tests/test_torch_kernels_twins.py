@@ -1,6 +1,7 @@
-"""Port parity of the plain PyTorch twins of the three collision kernels
-(mujoco_sim_tpu_torch/ops/{hull_sat,mtv_query,support_minmax}.py) in
-float32: against the JAX package's function, and against the Pallas
+"""Port parity of the plain PyTorch twins of the collision kernels and of
+the two prototype kernels
+(mujoco_sim_tpu_torch/ops/{hull_sat,mtv_query,support_minmax,chol_factor,
+face_sat}.py) in float32: against the JAX package's function, and against the Pallas
 kernel that the CUDA kernel replaces, run in interpret mode as the JAX
 package's own tests run it on the CPU.  On the CPU the wrappers take the
 twins, so the wrappers are what is called here.
@@ -9,20 +10,33 @@ Tolerances: values 1e-6 (f32, same arithmetic, summation order aside),
 indices equal.  The MTV query compares at 2e-5 as
 tests/test_pallas_refine.py does: its cross axes are normalised in f32,
 and the Pallas kernel multiplies by a reciprocal where the twin divides.
+
+The two prototype kernels (benchmarks/pallas_{chol,sat}_proto.py) have
+wrappers that pin TPU memory spaces and take no interpret flag, so their
+kernel BODIES (make_chol_kernel, make_kernel) are run here through
+``pl.pallas_call(..., interpret=True)`` on lane-last blocks of 128
+instances.  The factor twin is held to 2e-6 of the row's largest entry
+(the prototype multiplies by rsqrt(pivot), the twin divides by
+sqrt(pivot)); the face-SAT twin to 1e-6 with every index equal.
 """
+
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from mujoco_sim_tpu.ops import manifold as jmanifold
 from mujoco_sim_tpu.ops.collision import _hull_ref_face_depth as jax_hrfd
 from mujoco_sim_tpu.ops.pallas_refine import mtv_query as pallas_mtv
 from mujoco_sim_tpu.ops.pallas_sat import hull_ref_face_depth as pallas_hrfd
 from mujoco_sim_tpu.ops.pallas_support import support_minmax as pallas_smm
-from mujoco_sim_tpu_torch.ops import hull_sat, manifold, mtv_query
+from mujoco_sim_tpu_torch.ops import (chol_factor, face_sat, hull_sat,
+                                      manifold, mtv_query)
 from mujoco_sim_tpu_torch.ops import support_minmax as smm
 
 F32 = np.float32
@@ -205,3 +219,121 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         hull_sat.hull_ref_face_depth(meta, torch.empty(2, 5, 4,
                                                        device="meta"), 2)
+
+
+# ------------------------------------------ the two prototype kernels
+
+def _proto(name):
+    """Import benchmarks/<name>.py (a script, not a package module)."""
+    path = (pathlib.Path(__file__).resolve().parent.parent / "benchmarks"
+            / f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pallas_chol_interpret(A):
+    """The prototype's factor kernel body on (n, n, 128) lane-last blocks,
+    in interpret mode.  A (128, n, n) f32."""
+    n = A.shape[-1]
+    kernel = _proto("pallas_chol_proto").make_chol_kernel(n)
+    At = jnp.transpose(jnp.asarray(A), (1, 2, 0))
+    shape = jax.ShapeDtypeStruct((n, n, 128), At.dtype)
+
+    def with_scratch(a_ref, o_ref, s_ref):
+        kernel(a_ref, o_ref, s_ref)
+
+    out, _ = pl.pallas_call(with_scratch, out_shape=(shape, shape),
+                            interpret=True)(At)
+    return np.transpose(np.asarray(out), (2, 0, 1))
+
+
+@pytest.mark.parametrize("n,stiff", [(7, False), (17, False), (42, False),
+                                     (12, True)])
+def test_chol_factor_twin(n, stiff):
+    rng = np.random.default_rng(0)
+    M = rng.standard_normal((128, n, n))
+    A = M @ M.transpose(0, 2, 1) + 3 * n * np.eye(n)
+    if stiff:
+        A[:, 0, 0] += 1e9                 # the stiff case of test_pallas_chol
+    A = A.astype(F32)
+    L = chol_factor.chol_factor(torch.tensor(A))       # CPU: the twin
+    assert L.dtype == torch.float32
+    assert bool((torch.triu(L, 1) == 0).all())
+    from mujoco_sim_tpu.ops import linalg as jlinalg
+    refs = {"jax linalg.cholesky": np.asarray(jlinalg.cholesky(jnp.asarray(A))),
+            "pallas prototype": _pallas_chol_interpret(A)}
+    scale = np.abs(refs["jax linalg.cholesky"]).max(-1, keepdims=True)
+    for name, r in refs.items():
+        err = np.abs(L.numpy() - r) / scale
+        assert err.max() < 2e-6, (name, err.max())
+    # the factor reproduces the matrix
+    LLt = L.double() @ L.double().transpose(-1, -2)
+    rel = (LLt.numpy() - A).__abs__().max() / np.abs(A).max()
+    assert rel < 1e-6, rel
+
+
+def _pallas_sat_interpret(pts, planes, vm, K):
+    """The prototype's face-SAT kernel body on lane-last blocks of 128
+    instances, in interpret mode."""
+    N, V, _ = pts.shape
+    F_ = planes.shape[1]
+    assert N == 128
+    kernel = _proto("pallas_sat_proto").make_kernel(V, F_, K)
+    f32 = jnp.float32
+    dep, idx, plane, sep = pl.pallas_call(
+        kernel,
+        out_shape=(jax.ShapeDtypeStruct((K, N), f32),
+                   jax.ShapeDtypeStruct((K, N), jnp.int32),
+                   jax.ShapeDtypeStruct((4, N), f32),
+                   jax.ShapeDtypeStruct((1, N), f32)),
+        interpret=True)(jnp.transpose(jnp.asarray(pts), (1, 2, 0)),
+                        jnp.transpose(jnp.asarray(planes), (1, 2, 0)),
+                        jnp.transpose(jnp.asarray(vm), (1, 0)))
+    return (np.asarray(dep).T, np.asarray(idx).T, np.asarray(plane).T,
+            np.asarray(sep)[0])
+
+
+@pytest.mark.parametrize("case", ["random", "tie", "all_masked", "k4"])
+def test_face_sat_depth_twin(case):
+    rng = np.random.default_rng(2)
+    V, F_, K = (12, 20, 4) if case == "k4" else (9, 14, 2)
+    pts, planes, vm = _sat_case(rng, 128, V, F_)
+    if case == "tie":
+        pts[:, 3] = pts[:, 1]             # identical vertices
+        planes[:, 7] = planes[:, 2]       # identical faces
+        vm[:, 1] = vm[:, 3] = 1.0
+    if case == "all_masked":
+        vm[::2] = 0.0                     # nothing to pick: index 0 again
+    out = face_sat.face_sat_depth(torch.tensor(pts), torch.tensor(planes),
+                                  torch.tensor(vm), K)
+    assert out[1].dtype == torch.int32 and out[2].shape == (128, 4)
+    dep, idx, plane, sep = _pallas_sat_interpret(pts, planes, vm, K)
+    np.testing.assert_array_equal(out[1].numpy(), idx)
+    np.testing.assert_allclose(out[0].numpy(), dep, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out[2].numpy(), plane, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out[3].numpy(), sep, rtol=1e-6, atol=1e-6)
+    if case == "all_masked":
+        assert (out[1].numpy()[::2] == 0).all()
+        assert (out[0].numpy()[::2] == 1e9).all()
+        return
+    # and the JAX package's query (which excludes a pick with +inf, so it
+    # agrees wherever at least K points are live)
+    jd, ji, jn, js = (np.asarray(r) for r in jax_hrfd(
+        jnp.asarray(pts), jnp.asarray(planes), K, jnp.asarray(vm)))
+    live = vm.sum(-1) >= K
+    np.testing.assert_array_equal(out[1].numpy()[live], ji[live])
+    np.testing.assert_allclose(out[0].numpy()[live], jd[live], rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(out[2].numpy()[:, :3], jn, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out[3].numpy(), js, rtol=0, atol=1e-6)
+
+
+def test_prototype_wrappers_reject_other_devices():
+    meta = torch.empty(2, 4, 4, device="meta")
+    with pytest.raises(ValueError):
+        chol_factor.chol_factor(meta)
+    with pytest.raises(ValueError):
+        face_sat.face_sat_depth(torch.empty(2, 4, 3, device="meta"), meta,
+                                torch.empty(2, 4, device="meta"))
