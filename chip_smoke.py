@@ -167,6 +167,24 @@ def _median_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def _graph_ms(fn, launches=50, reps=5):
+    """One launch's share of a replayed CUDA graph of `launches` launches:
+    the kernel's time on the device with no host in the way (a single
+    event-timed launch of a kernel this short is mostly the wrapper's
+    host time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return _median_ms(graph.replay, reps) / launches
+
+
 def _bound(nbytes, flops):
     """Least time in ms for the work: the larger of bytes over the memory
     rate and flops over the f32 rate, and which of the two it is."""
@@ -182,16 +200,24 @@ def _cuda(x, dtype=torch.float32):
 
 def chol_vs_plain():
     from mujoco_sim_tpu_torch.ops import chol
+    from mujoco_sim_tpu_torch.utils import kernel_cases
     rng = np.random.default_rng(0)
     cases = [(n, N, False) for n in (6, 12, 42, 49) for N in (130, NENV)]
     cases.append((12, 130, True))         # stiff rows, as test_pallas_chol
+    # both sides of every size class at a batch of 37, a stiff row at
+    # n = 33, a pivot at the 1e-30 floor (utils/kernel_cases.py)
+    cases += [(name, None, name == "stiff_n33")
+              for name in kernel_cases.CHOL_CASES]
     worst_abs, worst_rel = 0.0, 0.0
     for n, N, stiff in cases:
-        A = _spd(rng, N, n)
-        if stiff:
-            A[:, 0, 0] += 1e9
-        At = _cuda(A)
-        bt = _cuda(rng.standard_normal((N, n)))
+        if N is None:
+            A, b = kernel_cases.chol_case(n)
+            n, N = f"case {n}", A.shape[0]
+        else:
+            A, b = _spd(rng, N, n), rng.standard_normal((N, n))
+            if stiff:
+                A[:, 0, 0] += 1e9
+        At, bt = _cuda(A), _cuda(b)
         x = chol.chol_solve_cuda(At, bt)
         xp = chol.chol_solve_plain(At, bt)
         torch.cuda.synchronize()
@@ -216,13 +242,14 @@ def chol_vs_plain():
                            N * (n ** 3 / 3 + 2 * n * n))
         timing[(n, N)] = dict(
             ms=_median_ms(lambda: chol.chol_solve_cuda(A, b)),
+            device_ms=_graph_ms(lambda: chol.chol_solve_cuda(A, b)),
             plain_ms=_median_ms(lambda: chol.chol_solve_plain(A, b)),
             library_ms=_median_ms(lambda: torch.cholesky_solve(
                 b[..., None], torch.linalg.cholesky(A))),
             bound_ms=bound, bound_by=by)
     phase("kernel_vs_plain", kernel="chol_solve", cases=len(cases),
           max_abs_err=worst_abs, max_rel_err=worst_rel,
-          tolerance=f"atol {ATOL} + rtol {RTOL}", stiff_1e9_case="ok",
+          tolerance=f"atol {ATOL} + rtol {RTOL}", stiff_1e9_cases="ok",
           timing={f"n{n}_N{N}": t for (n, N), t in timing.items()})
     return worst_abs, timing
 
@@ -239,6 +266,7 @@ def _time_factor(A):
     bound, by = _factor_bound(N, n)
     return dict(
         ms=_median_ms(lambda: chol_factor.chol_factor_cuda(A)),
+        device_ms=_graph_ms(lambda: chol_factor.chol_factor_cuda(A)),
         plain_ms=_median_ms(lambda: chol_factor.chol_factor_plain(A)),
         library_ms=_median_ms(lambda: torch.linalg.cholesky(A)),
         bound_ms=bound, bound_by=by)
@@ -246,13 +274,18 @@ def _time_factor(A):
 
 def chol_factor_vs_plain():
     from mujoco_sim_tpu_torch.ops import chol_factor
+    from mujoco_sim_tpu_torch.utils import kernel_cases
     rng = np.random.default_rng(2)
     cases = [(NENV, 6, False), (MANIP_NENV, 42, False), (256, 49, False),
              (130, 64, False), (130, 12, True)]   # stiff: diagonal ~1e9
+    # the factor is chol_solve's: the size-class edges at a batch of 37
+    cases += [(None, n, False) for n in kernel_cases.CHOL_EDGE_SIZES]
     worst_abs, worst_rel = 0.0, 0.0
     timing = {}
     for N, n, stiff in cases:
-        A = _spd(rng, N, n)
+        edge = N is None
+        A = kernel_cases.chol_case(f"n{n}")[0] if edge else _spd(rng, N, n)
+        N = A.shape[0]
         if stiff:
             A[:, 0, 0] += 1e9
         At = _cuda(A)
@@ -279,7 +312,8 @@ def chol_factor_vs_plain():
             stiff_abs = float(err.max())     # entries up to sqrt(1e9)
         else:
             worst_abs = max(worst_abs, float(err.max()))
-            timing[(n, N)] = _time_factor(At)
+            if not edge:
+                timing[(n, N)] = _time_factor(At)
     phase("kernel_vs_plain", kernel="chol_factor", cases=len(cases),
           max_abs_err=worst_abs, max_err_over_largest_entry=worst_rel,
           tolerance=f"atol {ATOL} + rtol {RTOL}",
@@ -509,6 +543,7 @@ def kernels_vs_plain():
     """The three collision kernels against their plain twins on the card,
     at seeded random inputs with masks, exact ties and cylinder lanes.
     Every case runs; the phase fails at its end if any case failed."""
+    from mujoco_sim_tpu_torch.utils import kernel_cases
     rng = np.random.default_rng(0)
     err = dict(hull_ref_face_depth=0.0, mtv_query=0.0, support_minmax=0.0)
     ties = dict(hull_ref_face_depth=0, mtv_query=0, mtv_staged=0)
@@ -552,11 +587,24 @@ def kernels_vs_plain():
                                         f"C={C} V={V} N={N}"))
             except AssertionError as exc:
                 failures.append(str(exc))
+    # the edge ranking's corner cases and the cylinder support on either
+    # side (utils/kernel_cases.py), held to the same bands; their near-ties
+    # are counted apart from those of the random inputs above
+    edge_ties = dict(mtv_query=0, mtv_staged=0)
+    for name in kernel_cases.MTV_CASES:
+        b = {k: _cuda(v) for k, v in kernel_cases.mtv_case(name).items()}
+        ncase += 1
+        try:
+            for kname, (e, t) in compare_mtv(b, f"case {name}").items():
+                err["mtv_query"] = max(err["mtv_query"], e)
+                edge_ties[kname] += t
+        except AssertionError as exc:
+            failures.append(str(exc))
     if failures:
         raise AssertionError("kernels disagree with their twins:\n"
                              + "\n".join(failures))
     phase("kernels_vs_plain", cases=ncase, max_abs_err=err,
-          accepted_near_ties=ties,
+          accepted_near_ties=ties, edge_case_near_ties=edge_ties,
           tolerance=f"atol {HATOL} + rtol {HRTOL} (MTV depth: atol "
                     f"{MTV_ATOL}); indices equal except at ties of the twin "
                     "within that band")
@@ -966,12 +1014,23 @@ def manip_kernels(probe):
     N = b["wA"].shape[:-2].numel()
     V, E, F = b["wA"].shape[-2], b["heA"].shape[-3], b["nfA"].shape[-2]
     K, R_ = mtv_query.K_EDGE, mtv_query.REFINE_ROUNDS
+    # the work these inputs need: a round that does not improve the depth
+    # ends its instance, so round r + 1 runs where round r improved
+    depths = [mtv_query.mtv_query_cuda(*args, rounds=r)[0]
+              for r in range(R_)]
+    round_lanes, going = [], torch.ones_like(depths[0], dtype=torch.bool)
+    for r in range(R_):
+        round_lanes.append(int(going.sum()))
+        if r + 1 < R_:
+            going = going & (depths[r + 1] < depths[r])
     bound, by = _bound(4 * N * (6 * V + 14 * E + 8 * F + 30) + 16 * N,
-                       N * ((2 * F + R_ * K * K) * 2 * V * 5
-                            + R_ * 2 * E * 12))
+                       N * 2 * F * 2 * V * 5
+                       + sum(round_lanes) * (K * K * 2 * V * 5 + 2 * E * 12))
     timing["mtv_query"] = dict(
         N=N, V=V, E=E, F=F, live_lanes=int(enabled.sum()),
+        lanes_in_round=round_lanes,
         ms=_median_ms(lambda: mtv_query.mtv_query_cuda(*args)),
+        device_ms=_graph_ms(lambda: mtv_query.mtv_query_cuda(*args)),
         plain_ms=_median_ms(lambda: mtv_query.mtv_query_plain(*args)),
         staged_ms=_median_ms(lambda: manifold.mtv_staged(*args)),
         bound_ms=bound, bound_by=by)
@@ -1224,7 +1283,8 @@ def main(argv):
         dict(name="chol_solve", route="cuda", source=src + "chol_solve.cu",
              replaces="mujoco_sim_tpu/ops/pallas_chol.py:40",
              launches=counts["chol_solve"], max_abs_err=chol_err,
-             ms=c42["ms"], plain_ms=c42["plain_ms"],
+             ms=c42["ms"], device_ms=c42["device_ms"],
+             plain_ms=c42["plain_ms"],
              bound_ms=c42["bound_ms"], bound_by=c42["bound_by"],
              library_ms=c42["library_ms"], launches_box_path=box_launches,
              launches_precise_path=pcounts["chol_solve"]),
@@ -1242,7 +1302,8 @@ def main(argv):
              launches=counts["mtv_query"],
              launches_precise_path=pcounts["mtv_query"],
              max_abs_err=worst["mtv_query"],
-             ms=t["mtv_query"]["ms"], plain_ms=t["mtv_query"]["plain_ms"],
+             ms=t["mtv_query"]["ms"], device_ms=t["mtv_query"]["device_ms"],
+             plain_ms=t["mtv_query"]["plain_ms"],
              bound_ms=t["mtv_query"]["bound_ms"],
              bound_by=t["mtv_query"]["bound_by"], library_ms=None),
         dict(name="support_minmax", route="cuda",
@@ -1264,7 +1325,8 @@ def main(argv):
         dict(name="chol_factor", route="cuda", source=src + "chol_factor.cu",
              replaces="benchmarks/pallas_chol_proto.py:24",
              launches=pcounts["chol_factor"], max_abs_err=fact_err,
-             ms=fact_step_t["ms"], plain_ms=fact_step_t["plain_ms"],
+             ms=fact_step_t["ms"], device_ms=fact_step_t["device_ms"],
+             plain_ms=fact_step_t["plain_ms"],
              bound_ms=fact_step_t["bound_ms"],
              bound_by=fact_step_t["bound_by"],
              library_ms=fact_step_t["library_ms"],

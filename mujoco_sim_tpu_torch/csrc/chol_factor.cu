@@ -11,12 +11,15 @@
 //
 // What bounds it on this card: nominally bytes (each matrix read once and
 // the factor written once, 8 n^2 bytes per system against ~n^3 / 3 flops:
-// 14 kB and 25 kFLOP at n = 42).  In practice, like chol_solve, the serial
-// column loop: n steps, each ending in a warp barrier, over shared memory.
-// What this simple design does about that is chol_solve's: one warp per
-// system (every barrier a __syncwarp), the matrix staged once in shared
-// memory with an odd row stride, several systems per block.  The factor
-// loop is the very code chol_solve runs (chol_factor.cuh).
+// 14 kB and 25 kFLOP at n = 42).  In practice, like chol_solve, the chain
+// of n dependent column steps on a batch too small to hide it.  The design
+// is chol_solve's with no work of its own: the factor is the very device
+// function chol_solve runs (factor_rows in chol_factor.cuh: rows in
+// registers, one shuffle, one shared column and one barrier per column
+// step, size classes 8..64, several systems a warp below n = 16, cp.async
+// staging).  What this file adds is the way out: each lane writes its row
+// of L (zeros above the diagonal) into the staged matrix's place in shared
+// memory, and the warp copies that out with coalesced stores.
 //
 // Build (no PyTorch headers; loaded with ctypes by ops/chol_factor.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -26,27 +29,58 @@ namespace {
 
 using namespace cholk;
 
-__global__ void chol_factor_kernel(const float* __restrict__ A,
-                                   float* __restrict__ L, int N, int n,
-                                   int ld) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int sys = blockIdx.x * (blockDim.x / kWarp) + warp;
-  if (sys >= N) return;  // whole warp leaves together
+template <int NP>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock* kWarp)
+    chol_factor_kernel(const float* __restrict__ A, float* __restrict__ L,
+                       int N, int n, int ld, unsigned magic) {
+  using T = Tile<NP>;
+  extern __shared__ __align__(16) float smem[];
+  const Place<NP> at(smem, n, ld);
+  const bool live = at.sys < N;
+  const int l = at.l;
 
-  float* a = smem + warp * (n * ld);
-  load_matrix(a, A + static_cast<long long>(sys) * n * n, n, ld, lane);
+  if (live) stage_matrix<NP>(at.stage, A + at.sys * n * n, n, ld, magic, l);
+  asynccopy::wait_all();
   __syncwarp();
 
-  factor_warp<false>(a, nullptr, n, ld, lane);
+  float a[T::kRows][NP];
+  float inv[T::kRows], diag[T::kRows], unused[T::kRows];
+  load_rows<NP>(a, at.stage, n, ld, l, live);
+  __syncwarp();  // every lane has read the staged matrix: it is free now
+  factor_rows<NP, false>(a, inv, diag, unused, at.col, n, l);
 
-  // the factor's lower triangle, zeros above the diagonal (coalesced)
-  float* Ls = L + static_cast<long long>(sys) * n * n;
-  for (int t = lane; t < n * n; t += kWarp) {
-    const int i = t / n, k = t % n;
-    Ls[t] = k <= i ? a[i * ld + k] : 0.0f;
+  // the lane's rows of L into shared memory: L[i][k] left of the diagonal,
+  // the pivot over its floored square root on it, zeros right of it
+#pragma unroll
+  for (int r = 0; r < T::kRows; ++r) {
+    const int i = l + kWarp * r;
+    if (live && i < n) {
+      const float lii = diag[r] * inv[r];
+#pragma unroll
+      for (int k = 0; k < NP; ++k)
+        if (k < n)
+          at.stage[i * ld + k] = k < i ? a[r][k] : (k == i ? lii : 0.0f);
+    }
   }
+  __syncwarp();
+  if (live) {
+    float* Ls = L + at.sys * n * n;
+    for (unsigned t = l; t < static_cast<unsigned>(n * n); t += T::kLanes) {
+      const unsigned r = __umulhi(t, magic);
+      Ls[t] = at.stage[r * ld + (t - r * n)];
+    }
+  }
+}
+
+template <int NP>
+int launch(const float* A, float* L, int N, int n, cudaStream_t stream) {
+  const int per_warp = warp_floats<NP>(n) * static_cast<int>(sizeof(float));
+  const int warps = warps_per_block(per_warp);
+  const int per_block = warps * Tile<NP>::kSystems;
+  chol_factor_kernel<NP>
+      <<<(N + per_block - 1) / per_block, warps * kWarp, warps * per_warp,
+         stream>>>(A, L, N, n, row_stride(n), div_magic(n));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -57,11 +91,6 @@ extern "C" int chol_factor_f32(const float* A, float* L, int N, int n,
                                void* stream) {
   if (n < 1 || n > kMaxN || N < 0) return 1;
   if (N == 0) return 0;
-  const int ld = row_stride(n);
-  const int per_warp = n * ld * static_cast<int>(sizeof(float));
-  const int warps = warps_per_block(per_warp);
-  const int blocks = (N + warps - 1) / warps;
-  chol_factor_kernel<<<blocks, warps * kWarp, warps * per_warp,
-                       static_cast<cudaStream_t>(stream)>>>(A, L, N, n, ld);
-  return static_cast<int>(cudaGetLastError());
+  return CHOLK_DISPATCH(n, launch, A, L, N, n,
+                        static_cast<cudaStream_t>(stream));
 }

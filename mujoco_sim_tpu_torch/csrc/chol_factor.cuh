@@ -1,67 +1,260 @@
-// Shared device code of the batched small-SPD kernels (sm_90a): one warp
-// factors one matrix held in shared memory.  chol_solve.cu (factor fused
-// with the substitutions) and chol_factor.cu (the factor alone, written
-// out) both call factor_warp, so the two factors cannot drift apart.
+// Shared device code of the batched small-SPD kernels (sm_90a): the factor
+// L L^T = A of one matrix, held in the registers of the lanes that own its
+// rows.  chol_solve.cu (factor fused with the substitutions) and
+// chol_factor.cu (the factor alone, written out) both call factor_rows, so
+// the two factors cannot drift apart.
 //
-// The factor is the right-looking column Cholesky L L^T = A with the pivot
-// floored as sqrt(max(a_jj, 1e-30)); column j is scaled by 1 / pivot and the
-// trailing lower triangle updated, lanes striding the rows below the pivot.
+// Layout.  The kernels are templated on a padded size class NP (8, 16, 32,
+// 48, 64; the launcher takes the smallest that holds n).  A system is owned
+// by kLanes = min(NP, 32) lanes; lane l of the group holds rows l and, above
+// 32, l + 32, each as NP registers.  Below 32 a warp carries 32 / NP systems
+// side by side (four at n <= 8), so small systems still fill the lanes.
+// Every loop over rows and columns is unrolled at compile time: the matrix
+// never leaves the register file during the factor.
+//
+// The factor is the right-looking column Cholesky with the pivot floored as
+// sqrt(max(a_jj, 1e-30)).  At column j every lane reads the pivot from its
+// owner with one shuffle, scales its own entry a_ij by the reciprocal pivot,
+// publishes it in a double-buffered column of NP floats in shared memory
+// (one store, one __syncwarp), and the lanes below the pivot subtract
+// l_ij * l_kj from their whole row with 16-byte broadcast reads of that
+// column: independent FMAs on registers, not a read-modify-write chain
+// through memory.  Column j + 1 and the next pivot go ahead by shuffle, so
+// the chain from column to column never waits on shared memory.  Rows are
+// updated on both sides of the diagonal (the matrix is loaded as the mirror
+// of its lower triangle, so the update stays exactly symmetric); a row
+// stops changing once it has been the pivot row.  Lane i therefore ends with
+//     a[k] = L[i][k]            for k < i,
+//     a[i] = the pivot a_ii before its square root (L[i][i] = a[i] * inv_i),
+//     a[k] = L[k][i] / inv_i    for k > i: column i of L, unscaled,
+// and inv_i = 1 / sqrt(max(a_ii, 1e-30)).  The part right of the diagonal
+// is what the backward substitution needs (row i of L^T), already in the
+// right lane.
 // With kWithRhs the forward substitution y = L^-1 b rides the same loop.
+// Rows and columns n..NP-1 are zeros and take no part: a padded row scales
+// to 0, never becomes a pivot, and no shuffle reads it.
 // Arithmetic is plain f32 FMA: no tensor cores, no TF32 (stiff rows,
 // efc_D ~ 1e9, lose the factor in reduced precision).
 #pragma once
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace cholk {
 
 constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxN = 64;
-constexpr int kMaxWarpsPerBlock = 8;
+constexpr int kMaxWarpsPerBlock = 4;
 constexpr int kSmemBudget = 48 * 1024;  // no opt-in attribute needed
 
-// Row stride of the matrix in shared memory: padded to an odd count so the
-// lanes of a column update hit distinct banks.
-__host__ __device__ inline int row_stride(int n) {
-  return (n % 2 == 0) ? n + 1 : n;
+template <int NP>
+struct Tile {
+  static constexpr int kLanes = NP < kWarp ? NP : kWarp;  // lanes a system
+  static constexpr int kRows = (NP + kWarp - 1) / kWarp;  // rows a lane
+  static constexpr int kSystems = kWarp / kLanes;         // systems a warp
+};
+
+// Row stride of the staged matrix in shared memory: odd, so the lanes of a
+// row-wise and of a column-wise access hit distinct banks.
+__host__ __device__ inline int row_stride(int n) { return n | 1; }
+
+// ceil(2^32 / n): __umulhi(t, magic) == t / n for every t < n * n <= 4096.
+inline unsigned div_magic(int n) {
+  return n == 1 ? 0u : 0xffffffffu / static_cast<unsigned>(n) + 1u;
 }
 
-// Warps (systems) per block for `per_warp` bytes of shared memory each.
+// Floats of shared memory one warp needs: the column buffers of its
+// systems, then their staged matrices (a multiple of 4 floats in all, so
+// every warp's column buffers stay 16-byte aligned).
+template <int NP>
+__host__ __device__ inline int warp_floats(int n) {
+  const int f = Tile<NP>::kSystems * (2 * NP + n * row_stride(n));
+  return (f + 3) & ~3;
+}
+
+// Warps per block for `per_warp` bytes of shared memory each.
 inline int warps_per_block(int per_warp) {
   int warps = kSmemBudget / per_warp;
   if (warps > kMaxWarpsPerBlock) warps = kMaxWarpsPerBlock;
-  if (warps < 1) warps = 1;
   return warps;
 }
 
-// Coalesced copy of one contiguous (n, n) matrix into shared memory.
-__device__ __forceinline__ void load_matrix(float* a, const float* As, int n,
-                                            int ld, int lane) {
-  for (int t = lane; t < n * n; t += kWarp) a[(t / n) * ld + t % n] = As[t];
-}
+// Where one lane stands: its warp's systems, its own system and its rows.
+template <int NP>
+struct Place {
+  int l;        // lane within the system's group
+  long long sys;  // system index (may be >= N in the last warp)
+  float* col;   // the system's two column buffers, 2 * NP floats
+  float* stage; // the system's staged matrix, n rows of stride ld
 
-// In-place factor of the lower triangle of a (row stride ld); the strict
-// upper triangle is left as it was.  y (n) is forward-substituted along
-// when kWithRhs.  The caller has synchronised the warp after loading.
-template <bool kWithRhs>
-__device__ __forceinline__ void factor_warp(float* a, float* y, int n, int ld,
-                                            int lane) {
-  for (int j = 0; j < n; ++j) {
-    const float piv = sqrtf(fmaxf(a[j * ld + j], 1e-30f));
-    const float inv = 1.0f / piv;
-    float yj = 0.0f;
-    if (kWithRhs) yj = y[j] * inv;
-    __syncwarp();
-    for (int i = j + lane; i < n; i += kWarp) a[i * ld + j] *= inv;
-    if (kWithRhs && lane == 0) y[j] = yj;
-    __syncwarp();
-    // trailing update of the lower triangle: a[i][k] -= l_ij * l_kj
-    for (int i = j + 1 + lane; i < n; i += kWarp) {
-      const float lij = a[i * ld + j];
-      for (int k = j + 1; k <= i; ++k) a[i * ld + k] -= lij * a[k * ld + j];
-      if (kWithRhs) y[i] -= lij * yj;
-    }
-    __syncwarp();
+  __device__ __forceinline__ Place(float* smem, int n, int ld) {
+    using T = Tile<NP>;
+    const int lane = threadIdx.x % kWarp;
+    const int warp = threadIdx.x / kWarp;
+    const int g = lane / T::kLanes;
+    l = lane % T::kLanes;
+    sys = (static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) + warp) *
+              T::kSystems + g;
+    float* base = smem + warp * warp_floats<NP>(n);
+    col = base + g * 2 * NP;
+    stage = base + T::kSystems * 2 * NP + g * n * ld;
+  }
+};
+
+// Issue the copy of one contiguous (n, n) matrix into the staged layout:
+// coalesced 4-byte cp.async, all in flight at once, no division (magic =
+// div_magic(n)).  The caller waits (asynccopy::wait_all + __syncwarp).
+template <int NP>
+__device__ __forceinline__ void stage_matrix(float* stage, const float* As,
+                                             int n, int ld, unsigned magic,
+                                             int l) {
+  for (unsigned t = l; t < static_cast<unsigned>(n * n);
+       t += Tile<NP>::kLanes) {
+    const unsigned r = __umulhi(t, magic);
+    asynccopy::copy_f32(stage + r * ld + (t - r * n), As + t);
   }
 }
 
+// The lane's rows from the staged matrix, as the mirror of the lower
+// triangle: a[k] = A[max(i, k)][min(i, k)]; zeros outside n (and for a
+// system that is not live).
+template <int NP>
+__device__ __forceinline__ void load_rows(
+    float (&a)[Tile<NP>::kRows][NP], const float* stage, int n, int ld, int l,
+    bool live) {
+#pragma unroll
+  for (int r = 0; r < Tile<NP>::kRows; ++r) {
+    const int i = l + kWarp * r;
+    const bool row = live && i < n;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      float v = 0.0f;
+      if (row && k < n) v = stage[k <= i ? i * ld + k : k * ld + i];
+      a[r][k] = v;
+    }
+  }
+}
+
+// 1 / sqrt(max(d, 1e-30)): the reciprocal of the floored pivot.  The
+// hardware's approximate reciprocal square root and one Newton step replace
+// an IEEE square root followed by an IEEE division, which were half of a
+// column step's dependent latency; the result is within an ulp of theirs.
+__device__ __forceinline__ float pivot_rsqrt(float d) {
+  const float x = fmaxf(d, 1e-30f);
+  const float r = rsqrtf(x);
+  const float e = fmaf(-x * r, r, 1.0f);
+  return fmaf(0.5f * r, e, r);
+}
+
+// Column step J of the factor; d and pinv come in as the pivot a_JJ and its
+// floored reciprocal square root and go out as those of column J + 1.  J is
+// a template parameter, not a loop variable, so every register index and
+// the trip count of the trailing update are constants where the step is
+// written.
+//
+// The chain from one column to the next is kept off shared memory: column
+// J + 1 is updated first, with l_{J+1,J} taken by shuffle from its lane,
+// and the next pivot is read and inverted before the barrier, so its
+// latency hides behind the rest of the trailing update, which reads the
+// published column.
+template <int NP, bool kWithRhs, int J>
+__device__ __forceinline__ void column_step(
+    float (&a)[Tile<NP>::kRows][NP], float (&inv)[Tile<NP>::kRows],
+    float (&diag)[Tile<NP>::kRows], float (&y)[Tile<NP>::kRows], float* col,
+    int l, float& d, float& pinv) {
+  using T = Tile<NP>;
+  constexpr int kOwnerRow = J / kWarp, kOwnerLane = J % kWarp;
+  constexpr int kNextRow = (J + 1) / kWarp, kNextLane = (J + 1) % kWarp;
+  float* cb = col + (J & 1) * NP;
+  float yj = 0.0f;
+  if (kWithRhs)
+    yj = __shfl_sync(kFull, y[kOwnerRow], kOwnerLane, T::kLanes) * pinv;
+  // m = -l_ij for a row below the pivot, 0 for the others: their FMAs add
+  // -0 * l_kj and leave the row as it is, with no select per element
+  float lij[T::kRows], m[T::kRows];
+#pragma unroll
+  for (int r = 0; r < T::kRows; ++r) {
+    const int i = l + kWarp * r;
+    lij[r] = a[r][J] * pinv;
+    if (i < NP) cb[i] = lij[r];
+    m[r] = i > J ? -lij[r] : 0.0f;
+    if (i == J) {
+      inv[r] = pinv;
+      diag[r] = d;
+      if (kWithRhs) y[r] = yj;
+    }
+    if (i > J) a[r][J] = lij[r];
+    if (kWithRhs) y[r] = fmaf(m[r], yj, y[r]);
+  }
+  if constexpr (J + 1 < NP) {
+    const float cn = __shfl_sync(kFull, lij[kNextRow], kNextLane, T::kLanes);
+#pragma unroll
+    for (int r = 0; r < T::kRows; ++r)
+      if (kWarp * r + kWarp - 1 > J) a[r][J + 1] = fmaf(m[r], cn, a[r][J + 1]);
+    d = __shfl_sync(kFull, a[kNextRow][J + 1], kNextLane, T::kLanes);
+    pinv = pivot_rsqrt(d);
+  }
+  // one barrier a column: the buffer written now was last read two columns
+  // ago, before the barrier of the column between
+  __syncwarp();
+  // trailing update of the rows below the pivot, both sides of the
+  // diagonal: a[i][k] -= l_ij * l_kj for k > J + 1
+#pragma unroll
+  for (int k4 = (J + 2) / 4 * 4; k4 < NP; k4 += 4) {
+    const float4 c4 = *reinterpret_cast<const float4*>(cb + k4);
+    const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (k4 + q > J + 1) {
+#pragma unroll
+        for (int r = 0; r < T::kRows; ++r)
+          // (rows l + 32 r all lie above the pivot once J >= 32 r + 31)
+          if (kWarp * r + kWarp - 1 > J)
+            a[r][k4 + q] = fmaf(m[r], c[q], a[r][k4 + q]);
+      }
+    }
+  }
+}
+
+template <int NP, bool kWithRhs, int J>
+__device__ __forceinline__ void columns_from(
+    float (&a)[Tile<NP>::kRows][NP], float (&inv)[Tile<NP>::kRows],
+    float (&diag)[Tile<NP>::kRows], float (&y)[Tile<NP>::kRows], float* col,
+    int n, int l, float& d, float& pinv) {
+  if constexpr (J < NP) {
+    if (J < n)  // uniform over the warp
+      column_step<NP, kWithRhs, J>(a, inv, diag, y, col, l, d, pinv);
+    columns_from<NP, kWithRhs, J + 1>(a, inv, diag, y, col, n, l, d, pinv);
+  }
+}
+
+// The factor, in place in the lanes' registers (see the note above for what
+// each lane holds afterwards).  For each of the lane's rows inv gets the
+// reciprocal of the floored pivot, 1 / sqrt(max(a_ii, 1e-30)), and diag the
+// pivot a_ii itself, so L[i][i] = diag * inv as the references store it (a
+// pivot below the floor is not its own square root); both 0 for a padded
+// row.  y holds the lane's entries of the right-hand side and is
+// forward-substituted along when kWithRhs.  col is the system's column
+// buffers.
+template <int NP, bool kWithRhs>
+__device__ __forceinline__ void factor_rows(
+    float (&a)[Tile<NP>::kRows][NP], float (&inv)[Tile<NP>::kRows],
+    float (&diag)[Tile<NP>::kRows], float (&y)[Tile<NP>::kRows], float* col,
+    int n, int l) {
+#pragma unroll
+  for (int r = 0; r < Tile<NP>::kRows; ++r) inv[r] = diag[r] = 0.0f;
+  float d = __shfl_sync(kFull, a[0][0], 0, Tile<NP>::kLanes);
+  float pinv = pivot_rsqrt(d);
+  columns_from<NP, kWithRhs, 0>(a, inv, diag, y, col, n, l, d, pinv);
+}
+
 }  // namespace cholk
+
+// FN<NP>(args...) for the smallest size class NP that holds n.
+#define CHOLK_DISPATCH(n, FN, ...)          \
+  ((n) <= 8    ? FN<8>(__VA_ARGS__)         \
+   : (n) <= 16 ? FN<16>(__VA_ARGS__)        \
+   : (n) <= 32 ? FN<32>(__VA_ARGS__)        \
+   : (n) <= 48 ? FN<48>(__VA_ARGS__)        \
+               : FN<64>(__VA_ARGS__))

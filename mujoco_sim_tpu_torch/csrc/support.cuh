@@ -35,6 +35,30 @@ __device__ __forceinline__ void support_scan(const float* __restrict__ w,
   mx = hi;
 }
 
+// The same scan for T axes at once over vertices stored as float4
+// (x, y, z, unused): one 16-byte broadcast load a vertex serves all T axes,
+// and each axis-vertex product keeps the order of support_scan.
+template <int T>
+__device__ __forceinline__ void support_scan_block(
+    const float4* __restrict__ w, int V, const float (&ax)[T],
+    const float (&ay)[T], const float (&az)[T], float (&mn)[T],
+    float (&mx)[T]) {
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    mn[t] = INFINITY;
+    mx[t] = -INFINITY;
+  }
+  for (int v = 0; v < V; ++v) {
+    const float4 q = w[v];
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      const float p = dot3(ax[t], ay[t], az[t], q.x, q.y, q.z);
+      mn[t] = fminf(mn[t], p);
+      mx[t] = fmaxf(mx[t], p);
+    }
+  }
+}
+
 // Exact support extents of a cylinder (centre cen, axis aw, radius r,
 // half-height hh) along the unit axis a: [dc - ext, dc + ext].
 __device__ __forceinline__ void cyl_extent(float ax, float ay, float az,
@@ -51,7 +75,7 @@ __device__ __forceinline__ void cyl_extent(float ax, float ay, float az,
 
 // true when (v, i) comes before (bv, bi) in "smaller value, then lower index"
 __device__ __forceinline__ bool less_vi(float v, int i, float bv, int bi) {
-  return v < bv || (v == bv && i < bi);
+  return (v < bv) | ((v == bv) & (i < bi));  // no short circuit: no branch
 }
 
 // Warp-wide argmin with lowest-index ties; every lane gets the result.

@@ -8,7 +8,9 @@ from a switch:
 
 * a CUDA tensor launches the kernel in csrc/chol_solve.cu (built by
   ops/cuda_build.py with nvcc at first use into ``_build/``, loaded with
-  ctypes) or raises;
+  ctypes) or raises.  The kernel keeps each matrix in the registers of the
+  lanes that own its rows (size classes 8, 16, 32, 48, 64; several systems
+  a warp below n = 16) and takes 1 <= n <= 64;
 * a CPU tensor takes the plain twin ``chol_solve_plain`` (ops/linalg.py
   cholesky + cho_solve, the JAX package's CPU path).
 
@@ -49,27 +51,18 @@ def _load() -> ctypes.CDLL:
 
 def chol_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: A (..., n, n) SPD, b (..., n) -> x (..., n),
-    float32, contiguous, on one CUDA device."""
+    float32, contiguous, on one CUDA device, 1 <= n <= 64."""
     global LAUNCHES
-    if not (A.is_cuda and b.is_cuda and A.device == b.device):
-        raise ValueError(f"chol_solve_cuda: tensors on {A.device}/{b.device}")
-    if A.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"chol_solve_cuda: float32 only, got {A.dtype}/{b.dtype}")
     n = A.shape[-1]
     if A.dim() < 2 or A.shape[-2] != n or b.shape != A.shape[:-1]:
         raise ValueError(f"chol_solve_cuda: shapes {tuple(A.shape)} / "
                          f"{tuple(b.shape)}")
     if not 1 <= n <= MAX_N:
         raise ValueError(f"chol_solve_cuda: n={n} outside 1..{MAX_N}")
-    if not (A.is_contiguous() and b.is_contiguous()):
-        raise ValueError("chol_solve_cuda: inputs must be contiguous")
-    lib = _load()
-    N = b.numel() // n
+    dev = cuda_build.check_f32_cuda("chol_solve_cuda", A=A, b=b)
     x = torch.empty_like(b)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = lib.chol_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
-                                N, n, stream)
+    rc = cuda_build.launch(dev, _load().chol_solve_f32, A.data_ptr(),
+                           b.data_ptr(), x.data_ptr(), b.numel() // n, n)
     if rc != 0:
         raise RuntimeError(f"chol_solve kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

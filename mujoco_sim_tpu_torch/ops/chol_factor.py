@@ -8,10 +8,10 @@ solves a matrix right-hand side with it.
 
 ``chol_factor`` picks its path from the tensor's device, never from a
 switch: a CUDA tensor launches csrc/chol_factor.cu (built by
-ops/cuda_build.py at first use; its factor loop is the one chol_solve.cu
-runs, shared through csrc/chol_factor.cuh) or raises; a CPU tensor takes
-the plain twin ``chol_factor_plain`` (ops/linalg.cholesky).  ``LAUNCHES``
-counts kernel launches and nothing else.
+ops/cuda_build.py at first use; its factor is the register-resident one
+chol_solve.cu runs, shared through csrc/chol_factor.cuh) or raises; a CPU
+tensor takes the plain twin ``chol_factor_plain`` (ops/linalg.cholesky).
+``LAUNCHES`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -56,12 +56,9 @@ def chol_factor_cuda(A: torch.Tensor) -> torch.Tensor:
     if not 1 <= n <= MAX_N:
         raise ValueError(f"{fn}: n={n} outside 1..{MAX_N}")
     dev = cuda_build.check_f32_cuda(fn, A=A)
-    lib = _load()
     L = torch.empty_like(A)
-    with torch.cuda.device(dev):
-        rc = lib.chol_factor_f32(A.data_ptr(), L.data_ptr(),
-                                 A.numel() // (n * n), n,
-                                 torch.cuda.current_stream(dev).cuda_stream)
+    rc = cuda_build.launch(dev, _load().chol_factor_f32, A.data_ptr(),
+                           L.data_ptr(), A.numel() // (n * n), n)
     if rc != 0:
         raise RuntimeError(f"chol_factor kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

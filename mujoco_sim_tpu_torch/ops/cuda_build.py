@@ -22,6 +22,8 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -45,7 +47,7 @@ KERNELS = {
     "support_minmax": ("support_minmax.cu", _NO_FMA),
     "face_sat": ("face_sat.cu", _NO_FMA),
 }
-HEADERS = ("support.cuh", "chol_factor.cuh")
+HEADERS = ("support.cuh", "chol_factor.cuh", "async_copy.cuh")
 
 # name -> dict(path, seconds, ptxas) of the builds this process made or found
 BUILD_INFO: dict = {}
@@ -118,6 +120,17 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(BUILD_INFO[name]["path"])
 
 
+def launch(dev, cfn, *args) -> int:
+    """Call the kernel's C entry ``cfn(*args, stream)`` on PyTorch's current
+    stream of ``dev`` and return its cudaError_t.  A kernel launches on the
+    current device, so ``dev`` is made current for the call when it is not;
+    when it already is (the usual case) the device guard is skipped."""
+    if torch.cuda.current_device() == dev.index:
+        return cfn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return cfn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+
+
 def check_f32_cuda(fn: str, **tensors):
     """Raise unless every tensor is float32, contiguous and on one CUDA
     device; returns that device."""
@@ -129,7 +142,7 @@ def check_f32_cuda(fn: str, **tensors):
             dev = t.device
         elif t.device != dev:
             raise ValueError(f"{fn}: {k} is on {t.device}, expected {dev}")
-        if str(t.dtype) != "torch.float32":
+        if t.dtype != torch.float32:
             raise TypeError(f"{fn}: float32 only, {k} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {k} must be contiguous")

@@ -103,13 +103,11 @@ def face_sat_depth_cuda(pts, planes, vmask, K=2):
     idx = torch.empty(lead + (K,), dtype=torch.int32, device=dev)
     plane = torch.empty(lead + (4,), dtype=torch.float32, device=dev)
     sep = torch.empty(lead, dtype=torch.float32, device=dev)
-    lib = _load()
-    with torch.cuda.device(dev):
-        rc = lib.face_sat_f32(
-            pts.data_ptr(), planes.data_ptr(), vmask.data_ptr(),
-            depth.data_ptr(), idx.data_ptr(), plane.data_ptr(),
-            sep.data_ptr(), N, V, F, K,
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = cuda_build.launch(
+        dev, _load().face_sat_f32,
+        pts.data_ptr(), planes.data_ptr(), vmask.data_ptr(),
+        depth.data_ptr(), idx.data_ptr(), plane.data_ptr(),
+        sep.data_ptr(), N, V, F, K)
     if rc != 0:
         raise RuntimeError(f"face_sat kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -136,14 +136,12 @@ def hull_ref_face_depth_cuda(pts_local, planes, k_out, pts_mask=None,
     idx = torch.empty(lead + (K,), dtype=torch.int64, device=dev)
     nref = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
     sep = torch.empty(lead, dtype=torch.float32, device=dev)
-    lib = _load()
-    with torch.cuda.device(dev):
-        rc = lib.hull_sat_f32(
-            pts_local.data_ptr(), planes.data_ptr(), pts_mask.data_ptr(),
-            slack.data_ptr(), depth.data_ptr(), idx.data_ptr(),
-            nref.data_ptr(), sep.data_ptr(), N, V, F, K,
-            int(bool(lateral_filter)),
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = cuda_build.launch(
+        dev, _load().hull_sat_f32,
+        pts_local.data_ptr(), planes.data_ptr(), pts_mask.data_ptr(),
+        slack.data_ptr(), depth.data_ptr(), idx.data_ptr(),
+        nref.data_ptr(), sep.data_ptr(), N, V, F, K,
+        int(bool(lateral_filter)))
     if rc != 0:
         raise RuntimeError(f"hull_sat kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

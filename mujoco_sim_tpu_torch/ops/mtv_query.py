@@ -18,7 +18,9 @@ WORLD merged-face normals, fmA/fmB (F,) face masks, RA/RB (3, 3), pA/pB
 hull takes its exact analytic support: axis = R[:, 2], centre = p).
 
 ``mtv_query`` picks its path from the tensor's device: a CUDA tensor
-launches csrc/mtv_query.cu (built by ops/cuda_build.py at first use) or
+launches csrc/mtv_query.cu (built by ops/cuda_build.py at first use; one
+warp per instance, four axes scanned per vertex load, the K nearest edges
+found by one parallel ranking in the twin's (score, index) order) or
 raises; a CPU tensor takes the plain twin.  ``LAUNCHES`` counts kernel
 launches and nothing else.
 """
@@ -38,6 +40,13 @@ SOURCE = cuda_build.source_path("mtv_query")
 K_EDGE = 16         # refinement edges per hull per round
 REFINE_ROUNDS = 2
 _SMEM_FLOATS = 47 * 1024 // 4
+
+
+def smem_floats(V, E, F, K):
+    """Floats of shared memory the kernel needs per instance (one warp):
+    vertices as float4, the ranking's 8-byte keys, the edge, face and pose
+    tables, the selected directions (csrc/mtv_query.cu ``warp_floats``)."""
+    return (8 * V + 2 * ((E + 3) & ~3) + 14 * E + 8 * F + 30 + 6 * K + 3) & ~3
 
 
 def cyl_ext(axes, aw, r, hh):
@@ -173,6 +182,11 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
+# the query's tensor arguments, in call order
+ARG_NAMES = ("wA", "wB", "heA", "heB", "hmA", "hmB", "nfA", "nfB", "fmA",
+             "fmB", "RA", "RB", "pA", "pB", "cylA", "cylB")
+
+
 def mtv_query_cuda(wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB,
                    RA, RB, pA, pB, cylA, cylB, K=K_EDGE,
                    rounds=REFINE_ROUNDS):
@@ -182,36 +196,30 @@ def mtv_query_cuda(wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB,
     fn = "mtv_query_cuda"
     lead = wA.shape[:-2]
     V, E, F = wA.shape[-2], heA.shape[-3], nfA.shape[-2]
-    want = dict(wA=(V, 3), wB=(V, 3), heA=(E, 2, 3), heB=(E, 2, 3),
-                hmA=(E,), hmB=(E,), nfA=(F, 3), nfB=(F, 3), fmA=(F,),
-                fmB=(F,), RA=(3, 3), RB=(3, 3), pA=(3,), pB=(3,),
-                cylA=(3,), cylB=(3,))
-    got = dict(wA=wA, wB=wB, heA=heA, heB=heB, hmA=hmA, hmB=hmB, nfA=nfA,
-               nfB=nfB, fmA=fmA, fmB=fmB, RA=RA, RB=RB, pA=pA, pB=pB,
-               cylA=cylA, cylB=cylB)
-    for name, shape in want.items():
-        if got[name].shape != lead + shape:
-            raise ValueError(f"{fn}: {name} has shape "
-                             f"{tuple(got[name].shape)}, expected "
-                             f"{tuple(lead + shape)}")
+    got = (wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB, RA, RB, pA, pB,
+           cylA, cylB)
+    want = ((V, 3), (V, 3), (E, 2, 3), (E, 2, 3), (E,), (E,), (F, 3), (F, 3),
+            (F,), (F,), (3, 3), (3, 3), (3,), (3,), (3,), (3,))
+    dev = wA.device
+    for name, t, shape in zip(ARG_NAMES, got, want):
+        if t.shape != lead + shape:
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(lead + shape)}")
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous() or not t.is_cuda):
+            # the slow path names the fault
+            cuda_build.check_f32_cuda(fn, **{"wA": wA, name: t})
     K, rounds = int(K), int(rounds)
-    if K < 1 or rounds < 0:
+    if not 1 <= K <= 1024 or rounds < 0:
         raise ValueError(f"{fn}: K={K}, rounds={rounds}")
-    if 6 * V + 16 * E + 8 * F + 6 * K + 36 > _SMEM_FLOATS:
+    if smem_floats(V, E, F, K) > _SMEM_FLOATS:
         raise ValueError(f"{fn}: V={V}, E={E}, F={F}, K={K} exceed the "
                          "kernel's shared memory")
-    dev = cuda_build.check_f32_cuda(fn, **got)
-    N = 1
-    for s in lead:
-        N *= s
     depth = torch.empty(lead, dtype=torch.float32, device=dev)
     n = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
-    lib = _load()
-    with torch.cuda.device(dev):
-        rc = lib.mtv_query_f32(
-            *(got[k].data_ptr() for k in want), depth.data_ptr(),
-            n.data_ptr(), N, V, E, F, K, rounds,
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = cuda_build.launch(
+        dev, _load().mtv_query_f32, *[t.data_ptr() for t in got],
+        depth.data_ptr(), n.data_ptr(), depth.numel(), V, E, F, K, rounds)
     if rc != 0:
         raise RuntimeError(f"mtv_query kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

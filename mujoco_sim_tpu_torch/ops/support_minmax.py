@@ -65,11 +65,9 @@ def support_minmax_cuda(axes: torch.Tensor, w: torch.Tensor):
         N *= s
     mn = torch.empty(lead + (C,), dtype=torch.float32, device=dev)
     mx = torch.empty(lead + (C,), dtype=torch.float32, device=dev)
-    lib = _load()
-    with torch.cuda.device(dev):
-        rc = lib.support_minmax_f32(
-            axes.data_ptr(), w.data_ptr(), mn.data_ptr(), mx.data_ptr(),
-            N, C, V, torch.cuda.current_stream(dev).cuda_stream)
+    rc = cuda_build.launch(
+        dev, _load().support_minmax_f32,
+        axes.data_ptr(), w.data_ptr(), mn.data_ptr(), mx.data_ptr(), N, C, V)
     if rc != 0:
         raise RuntimeError(f"support_minmax kernel launch failed: "
                            f"cudaError {rc}")

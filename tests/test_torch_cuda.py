@@ -14,6 +14,7 @@ import torch
 import mujoco_sim_tpu_torch as mst
 from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat, hull_sat,
                                       manifold, mtv_query, support_minmax)
+from mujoco_sim_tpu_torch.utils import kernel_cases
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 
@@ -61,6 +62,29 @@ def test_kernel_matches_plain_twin(case, cuda_device):
                                rtol=2e-5, atol=2e-5)
     r = (At @ x[..., None])[..., 0] - bt
     assert float(r.abs().max()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", kernel_cases.CHOL_CASES)
+def test_chol_kernels_edge_cases(case, cuda_device):
+    """chol_solve and chol_factor against their twins on the cases of
+    tests/test_torch_kernels_twins.py: both sides of every size class at a
+    batch of 37, a stiff row at n = 33, a pivot at the 1e-30 floor."""
+    A, b = kernel_cases.chol_case(case)
+    At = torch.tensor(A, dtype=torch.float32, device=cuda_device)
+    bt = torch.tensor(b, dtype=torch.float32, device=cuda_device)
+    x = chol.chol_solve(At, bt)
+    L = chol_factor.chol_factor(At)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(L).all())
+    torch.testing.assert_close(x, chol.chol_solve_plain(At, bt),
+                               rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(L, chol_factor.chol_factor_plain(At),
+                               rtol=2e-5, atol=2e-5)
+    assert bool((torch.triu(L, 1) == 0).all())
+    if case == "stiff_n33":
+        r = (At @ x[..., None])[..., 0] - bt
+        assert float(r.abs().max()) < 1e-2
 
 
 @pytest.mark.cuda
@@ -186,6 +210,27 @@ def test_mtv_query_kernel_matches_plain_twin(V, E, F, cuda_device):
     for d_, n_ in ((dep, n), (dep_s, n_s)):
         torch.testing.assert_close(d_, rd, rtol=1e-5, atol=2e-5)
         assert int(((n_ * rn).sum(-1) < 1 - 1e-5).sum()) <= 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", kernel_cases.MTV_CASES)
+def test_mtv_query_kernel_edge_cases(case, cuda_device):
+    """The kernel's edge ranking against the twin's K argmin passes: fewer
+    edges than K, every edge of a hull masked, exactly tied scores, and
+    the cylinder support on either side.  Depth to 2e-5; random hulls tie
+    nowhere else, so the axes agree."""
+    b = kernel_cases.mtv_case(case)
+    args = [torch.tensor(b[k], dtype=torch.float32, device=cuda_device)
+            for k in kernel_cases.MTV_ORDER]
+    dep, n = mtv_query.mtv_query(*args)
+    torch.cuda.synchronize()
+    rd, rn = mtv_query.mtv_query_plain(*args)
+    assert bool(torch.isfinite(dep).all())
+    torch.testing.assert_close(dep, rd, rtol=1e-5, atol=2e-5)
+    assert int(((n * rn).sum(-1) < 1 - 1e-5).sum()) <= 1
+    if case.startswith("masked"):
+        d0, n0 = mtv_query.mtv_query(*args, rounds=0)
+        assert torch.equal(dep, d0) and torch.equal(n, n0)
 
 
 @pytest.mark.cuda

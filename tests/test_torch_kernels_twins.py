@@ -32,12 +32,14 @@ from jax.experimental import pallas as pl
 
 from mujoco_sim_tpu.ops import manifold as jmanifold
 from mujoco_sim_tpu.ops.collision import _hull_ref_face_depth as jax_hrfd
+from mujoco_sim_tpu.ops.pallas_chol import chol_solve as pallas_chol_solve
 from mujoco_sim_tpu.ops.pallas_refine import mtv_query as pallas_mtv
 from mujoco_sim_tpu.ops.pallas_sat import hull_ref_face_depth as pallas_hrfd
 from mujoco_sim_tpu.ops.pallas_support import support_minmax as pallas_smm
-from mujoco_sim_tpu_torch.ops import (chol_factor, face_sat, hull_sat,
+from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat, hull_sat,
                                       manifold, mtv_query)
 from mujoco_sim_tpu_torch.ops import support_minmax as smm
+from mujoco_sim_tpu_torch.utils import kernel_cases
 
 F32 = np.float32
 
@@ -337,3 +339,77 @@ def test_prototype_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         face_sat.face_sat_depth(torch.empty(2, 4, 3, device="meta"), meta,
                                 torch.empty(2, 4, device="meta"))
+
+
+# ----------- the semantics the register-resident / ranking kernels lean on
+
+@pytest.mark.parametrize("case", kernel_cases.CHOL_CASES)
+def test_chol_solve_twin_edge_cases(case):
+    """chol_solve's twin in float32 against the Pallas kernel in interpret
+    mode at the band of tests/test_pallas_chol.py (2e-5 absolute + relative):
+    both sides of every size-class edge of the CUDA kernel at a batch of 37,
+    a stiff 1e9 row at n = 33, and a pivot that hits the 1e-30 floor."""
+    A, b = kernel_cases.chol_case(case)
+    A, b = A.astype(F32), b.astype(F32)
+    x = chol.chol_solve(torch.tensor(A), torch.tensor(b)).numpy()
+    ref = np.asarray(pallas_chol_solve(jnp.asarray(A), jnp.asarray(b),
+                                       interpret=True))
+    assert np.isfinite(x).all()
+    np.testing.assert_allclose(x, ref, rtol=2e-5, atol=2e-5)
+    if case == "stiff_n33":
+        r = np.einsum("bij,bj->bi", A.astype(np.float64), x) - b
+        assert np.abs(r).max() < 1e-2, np.abs(r).max()
+    if case == "floor":
+        # the floored pivot is stored as a_jj / sqrt(1e-30) ~ -1e12 s and
+        # divided by as such: x_2 is b_2 over ~1e12 and more, not b_2 / ~0
+        assert np.abs(x[:, 1]).max() < 1e-20
+
+
+@pytest.mark.parametrize("case", kernel_cases.MTV_CASES)
+def test_mtv_query_twin_edge_cases(case):
+    """mtv_query's twin against the JAX package's XLA form and the Pallas
+    kernel in interpret mode, depth and axis to 2e-5: fewer edges than K,
+    every edge of one hull masked, exactly tied edge scores (the lower
+    index first), a cylinder-flagged hull on either side."""
+    b = {k: v.astype(F32) for k, v in kernel_cases.mtv_case(case).items()}
+    V = b["wA"].shape[-2]
+    b["vmA"] = b["vmB"] = np.ones(b["wA"].shape[:-2] + (V,), F32)
+    args = [torch.tensor(b[k]) for k in _ORDER]
+    dep, n = mtv_query.mtv_query(*args)
+    dk, nk = pallas_mtv(*(jnp.asarray(b[k]) for k in _ORDER),
+                        jmanifold._K_EDGE, jmanifold._REFINE_ROUNDS,
+                        interpret=True)
+    assert np.isfinite(dep.numpy()).all()
+    for rd, rn in (_jax_ref(b), (dk, nk)):
+        np.testing.assert_allclose(dep.numpy(), np.asarray(rd), atol=2e-5)
+        np.testing.assert_allclose(n.numpy(), np.asarray(rn), atol=2e-5)
+    if case.startswith("masked"):
+        # no cross axis is valid: the coarse face-normal pick stands
+        d0, n0 = mtv_query.mtv_query(*args, rounds=0)
+        assert torch.equal(dep, d0) and torch.equal(n, n0)
+
+
+def test_topk_edge_dirs_is_the_score_index_order():
+    """The selection the CUDA kernel computes by ranking: direction r is
+    that of the r-th edge in (score, index) order, zero where that edge's
+    score is not finite and in slots past the hull's edges."""
+    rng = np.random.default_rng(7)
+    N, E, K = 5, 10, 16
+    he = torch.tensor(rng.normal(size=(N, E, 2, 3)))
+    he[:, 3] = he[:, 2]                      # an exact tie
+    hm = torch.ones(N, E, dtype=torch.float64)
+    hm[:, 7] = 0.0
+    n = torch.tensor(rng.normal(size=(N, 3)))
+    n = n / n.norm(dim=-1, keepdim=True)
+    R = torch.eye(3, dtype=torch.float64).expand(N, 3, 3)
+    p = torch.zeros(N, 3, dtype=torch.float64)
+    s = (he @ n[:, None, :, None])[..., 0].amax((-1, -2))
+    d = mtv_query.topk_edge_dirs(he, hm, n, s, 1.0, K, p, R)
+    score = (s[:, None, None] - (he * n[:, None, None, :]).sum(-1)).amax(-1)
+    score[:, 7] = torch.inf
+    order = sorted(range(E), key=lambda e: (float(score[0, e]), e))
+    assert order.index(2) + 1 == order.index(3)
+    for r, e in enumerate(order):
+        want = (he[0, e, 1] - he[0, e, 0]) if e != 7 else torch.zeros(3)
+        torch.testing.assert_close(d[0, r], want.double())
+    assert bool((d[:, E:] == 0).all())
