@@ -3,9 +3,11 @@
 Drives the port's main paths (mujoco_sim_tpu_torch: load_model -> put_model
 -> make_data -> rollout of the batched step) on the card: the
 primitive-geom box scene at 4096 envs (Euler, then short RK4 and implicit
-rollouts), the contact-rich manipulation scene (an arm stirring six convex
-meshes in a bin) at 1024 envs, and the same scene as a precise-contact,
-sensed step (elliptic cone, noslip, 31 sensor values) at 1024 envs.  Builds
+rollouts), a pile of 11 free boxes (nv = 66, above the Cholesky kernels'
+register classes) at 1024 envs, the contact-rich manipulation scene (an
+arm stirring six convex meshes in a bin) at 1024 envs, and the same scene
+as a precise-contact, sensed step (elliptic cone, noslip, 31 sensor
+values) at 1024 envs.  Builds
 the six hand-written kernels from the checkout's own sources, holds each
 against its plain PyTorch twin, and checks the results.  Run from the root
 of a checkout, with one card:
@@ -19,8 +21,8 @@ record (JSON); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 ``python3 chip_smoke.py build kernels`` runs only the named phases (of
-env, build, kernels, box, manip, precise) and prints no final record: a
-quick check of the kernels alone.
+env, build, kernels, box, pile, manip, precise) and prints no final record:
+a quick check of the kernels alone.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ BOX = os.path.join(ROOT, "tests", "fixtures", "floor_box.xml")
 STACK = os.path.join(ROOT, "tests", "fixtures", "stack.xml")
 MANIP = os.path.join(ROOT, "tests", "fixtures", "manip_bin6.xml")
 PRECISE = os.path.join(ROOT, "tests", "fixtures", "manip_bin6_precise.xml")
+PILE = os.path.join(ROOT, "tests", "fixtures", "box_pile11.xml")
 NENV = 4096
 MANIP_NENV = 1024
 # chol_solve vs plain twin: |x_kernel - x_plain| <= ATOL + RTOL |x_plain|
@@ -208,10 +211,16 @@ def chol_vs_plain():
     # n = 33, a pivot at the 1e-30 floor (utils/kernel_cases.py)
     cases += [(name, None, name == "stiff_n33")
               for name in kernel_cases.CHOL_CASES]
+    # above the size classes: one block a system, in shared memory up to
+    # n = 239, in device memory beyond; a stiff row, a floored pivot
+    cases += [(name, None, name == "stiff_n96")
+              for name in kernel_cases.CHOL_BIG_CASES]
     worst_abs, worst_rel = 0.0, 0.0
     for n, N, stiff in cases:
         if N is None:
-            A, b = kernel_cases.chol_case(n)
+            case = (kernel_cases.chol_big_case if n in
+                    kernel_cases.CHOL_BIG_CASES else kernel_cases.chol_case)
+            A, b = case(n)
             n, N = f"case {n}", A.shape[0]
         else:
             A, b = _spd(rng, N, n), rng.standard_normal((N, n))
@@ -235,7 +244,8 @@ def chol_vs_plain():
         worst_rel = max(worst_rel,
                         float(err.max() / xp.abs().max().clamp(min=1e-30)))
     timing = {}
-    for n, N in ((6, NENV), (42, NENV), (42, MANIP_NENV)):
+    for n, N in ((6, NENV), (42, NENV), (42, MANIP_NENV), (66, MANIP_NENV),
+                 (128, 256)):
         A = _cuda(_spd(rng, N, n))
         b = torch.randn(N, n, device="cuda")
         bound, by = _bound(N * (n * n + 2 * n) * 4,
@@ -280,11 +290,16 @@ def chol_factor_vs_plain():
              (130, 64, False), (130, 12, True)]   # stiff: diagonal ~1e9
     # the factor is chol_solve's: the size-class edges at a batch of 37
     cases += [(None, n, False) for n in kernel_cases.CHOL_EDGE_SIZES]
+    # above the size classes, timed at the step-like (1024, 66) and (256, 128)
+    cases += [(None, n, False) for n in kernel_cases.CHOL_BIG_SIZES]
+    cases += [(MANIP_NENV, 66, False), (256, 128, False)]
     worst_abs, worst_rel = 0.0, 0.0
     timing = {}
     for N, n, stiff in cases:
         edge = N is None
-        A = kernel_cases.chol_case(f"n{n}")[0] if edge else _spd(rng, N, n)
+        case = (kernel_cases.chol_big_case if n in kernel_cases.CHOL_BIG_SIZES
+                else kernel_cases.chol_case)
+        A = case(f"n{n}")[0] if edge else _spd(rng, N, n)
         N = A.shape[0]
         if stiff:
             A[:, 0, 0] += 1e9
@@ -334,6 +349,7 @@ def face_sat_vs_plain():
     inputs (two identical faces, two identical vertices), an all-masked
     instance; every index equal, values within the band."""
     from mujoco_sim_tpu_torch.ops import face_sat
+    from mujoco_sim_tpu_torch.utils import kernel_cases
     rng = np.random.default_rng(3)
     worst, ncase, timing = 0.0, 0, {}
     for V, F in ((8, 12), (32, 60), (80, 144)):
@@ -364,9 +380,31 @@ def face_sat_vs_plain():
                     N=N, V=V, F=F, K=2,
                     ms=_median_ms(lambda: face_sat.face_sat_depth_cuda(
                         pts, planes, mask, 2)),
+                    device_ms=_graph_ms(lambda: face_sat.face_sat_depth_cuda(
+                        pts, planes, mask, 2)),
                     plain_ms=_median_ms(lambda: face_sat.face_sat_depth_plain(
                         pts, planes, mask, 2)),
                     bound_ms=bound, bound_by=by)
+    # the edge cases shared with the tests (utils/kernel_cases.py); a
+    # missing mask is all ones here
+    for name in kernel_cases.SAT_CASES:
+        c = kernel_cases.sat_case(name)
+        pts, planes = _cuda(c["pts"]), _cuda(c["planes"])
+        mask = (torch.ones(pts.shape[:-1], device="cuda") if c["mask"] is None
+                else _cuda(c["mask"]))
+        ncase += 1
+        out = face_sat.face_sat_depth_cuda(pts, planes, mask, c["K"])
+        torch.cuda.synchronize()
+        ref = face_sat.face_sat_depth_plain(pts, planes, mask, c["K"])
+        if not (torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])):
+            raise AssertionError(f"face_sat_depth case {name}: an index or "
+                                 "the reference plane differs from the twin's")
+        for what, a, b in (("depth", out[0], ref[0]), ("sep", out[3], ref[3])):
+            if not bool(_close(a, b).all()):
+                raise AssertionError(
+                    f"face_sat_depth case {name}: {what} disagrees with the "
+                    f"twin, max abs err {_max_err(a, b)}")
+            worst = max(worst, _max_err(a, b))
     # its own entry point's path: counts set to 0 just before, read just
     # after (no step calls it; scripts/torch_sat_proto.py does)
     face_sat.LAUNCHES = 0
@@ -376,6 +414,7 @@ def face_sat_vs_plain():
     if launches != 1:
         raise AssertionError(f"face_sat_depth launched {launches} times")
     phase("kernel_vs_plain", kernel="face_sat_depth", cases=ncase,
+          edge_cases=len(kernel_cases.SAT_CASES),
           max_abs_err=worst, indices="all equal",
           tolerance=f"atol {HATOL} + rtol {HRTOL}", timing=timing)
     return worst, timing, launches
@@ -570,6 +609,16 @@ def kernels_vs_plain():
                         f"V={V} F={F} N={N} K={K} lateral={lateral}")
             sat(pts, planes, 2, None, False, 0.0,
                 f"V={V} F={F} N={N} unmasked")
+    # the face-SAT edge cases shared with the tests (utils/kernel_cases.py),
+    # with and without the filter
+    for name in kernel_cases.SAT_CASES:
+        c = kernel_cases.sat_case(name)
+        mask = None if c["mask"] is None else _cuda(c["mask"])
+        slack = c["slack"] if isinstance(c["slack"], float) \
+            else _cuda(c["slack"])
+        for lateral in (False, True):
+            sat(_cuda(c["pts"]), _cuda(c["planes"]), c["K"], mask, lateral,
+                slack, f"case {name} lateral={lateral}")
     for V, E, F in ((8, 12, 6), (24, 56, 34), (80, 216, 144)):
         for N in (130, 8192):
             b = _mtv_inputs(rng, N, V, E, F)
@@ -819,6 +868,48 @@ def second_scene():
           chol_launches=chol.LAUNCHES - before)
 
 
+# ------------------------------------------------------------ pile main path
+
+def pile_main_path(card):
+    """box_pile11 @1024 (11 free boxes, nv = 66): every SPD solve of the
+    step goes through chol_solve's one-block-a-system path; 100 steps from
+    2 mm above rest, then every box finite and at rest."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.ops import chol
+    m = mst.put_model(mst.load_model(PILE))       # float32, on the card
+    if m.nv <= chol.CLASS_MAX_N:
+        raise AssertionError(f"box_pile11 has nv = {m.nv}: not above the "
+                             "register classes")
+    d0 = mst.make_data(m, MANIP_NENV)
+    nsteps = 100
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = mst.rollout(m, d0, nsteps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    bad = _float_leaves_finite(d)
+    if bad:
+        raise AssertionError(f"pile: non-finite leaves: {bad}")
+    if counts["chol_solve"] < 2 * nsteps:
+        raise AssertionError(f"pile: chol_solve ran {counts['chol_solve']} "
+                             f"times in {nsteps} steps")
+    # nine boxes of half-height 0.05 on the floor, two of 0.04 on top of
+    # them (centres near 0.14)
+    ok, zmin, zmax, vmax = _settled(d, [0.05] * 9 + [0.13] * 2, 0.155, 0.05)
+    if not bool(ok.all()):
+        raise AssertionError(f"pile: {int((~ok).sum())} envs not at rest: z "
+                             f"in [{zmin}, {zmax}], max speed {vmax}")
+    phase("pile_main_path", scene="box_pile11.xml", nv=m.nv,
+          nenv=MANIP_NENV, steps=nsteps, launches=counts,
+          launches_per_step={k: v / nsteps for k, v in counts.items()},
+          finite=True, settled=True, z_range=[zmin, zmax], max_speed=vmax,
+          rollout_s=secs, env_steps_per_s=MANIP_NENV * nsteps / secs,
+          card=card)
+    return counts
+
+
 # ----------------------------------------------------------- manip main path
 
 def _stir(nenv, nu, device, dtype, seed=1):
@@ -999,12 +1090,18 @@ def manip_kernels(probe):
     timing = {}
     for shape, (pts, planes, k, mask, lateral, slack) in shapes.items():
         N, V, F = pts.shape[:-2].numel(), pts.shape[-2], planes.shape[-2]
-        bound, by = _bound(4 * N * (4 * V + 4 * F + 1) + N * (12 * k + 16),
+        # bytes: points and planes, the mask and the slack where passed,
+        # the outputs
+        nbytes = (4 * N * (3 * V + 4 * F) + N * (12 * k + 16)
+                  + (4 * N * V if mask is not None else 0)
+                  + (4 * N if isinstance(slack, torch.Tensor) else 0))
+        bound, by = _bound(nbytes,
                            N * (6 * V * F * (2 if lateral else 1) + 6 * V))
+        call = lambda: hull_sat.hull_ref_face_depth_cuda(
+            pts, planes, k, mask, lateral, slack)
         timing["box_mesh" if V == 8 else "mesh_mesh"] = dict(
             N=N, V=V, F=F, K=k, lateral=bool(lateral),
-            ms=_median_ms(lambda: hull_sat.hull_ref_face_depth_cuda(
-                pts, planes, k, mask, lateral, slack)),
+            ms=_median_ms(call), device_ms=_graph_ms(call),
             plain_ms=_median_ms(lambda: hull_sat.hull_ref_face_depth_plain(
                 pts, planes, k, mask, lateral, slack)),
             bound_ms=bound, bound_by=by)
@@ -1045,6 +1142,8 @@ def manip_kernels(probe):
         timing[f"support_minmax_C{C}"] = dict(
             N=N, C=C, V=V,
             ms=_median_ms(lambda: smm.support_minmax_cuda(axes, b["wA"])),
+            device_ms=_graph_ms(lambda: smm.support_minmax_cuda(axes,
+                                                                b["wA"])),
             plain_ms=_median_ms(
                 lambda: smm.support_minmax_plain(axes, b["wA"])),
             bound_ms=bound, bound_by=by)
@@ -1266,6 +1365,8 @@ def main(argv):
         box_integrators(m, d_rest)
         box_cross_check(m, qpos, qvel)
         second_scene()
+    if want("pile"):
+        pile_counts = pile_main_path(card)
     if want("manip"):
         mm_, counts, probe = manip_main_path(card)
         cap_err, t = manip_kernels(probe)
@@ -1278,7 +1379,10 @@ def main(argv):
         return
     src = "mujoco_sim_tpu_torch/csrc/"
     c42 = chol_t[(42, MANIP_NENV)]
+    c66 = chol_t[(66, MANIP_NENV)]
+    f66 = fact_t[(66, MANIP_NENV)]
     worst = {k: max(rand_err[k], cap_err[k]) for k in rand_err}
+    mm, bm = t["mesh_mesh"], t["box_mesh"]
     kernels = [
         dict(name="chol_solve", route="cuda", source=src + "chol_solve.cu",
              replaces="mujoco_sim_tpu/ops/pallas_chol.py:40",
@@ -1287,16 +1391,23 @@ def main(argv):
              plain_ms=c42["plain_ms"],
              bound_ms=c42["bound_ms"], bound_by=c42["bound_by"],
              library_ms=c42["library_ms"], launches_box_path=box_launches,
-             launches_precise_path=pcounts["chol_solve"]),
+             launches_precise_path=pcounts["chol_solve"],
+             launches_pile_path=pile_counts["chol_solve"],
+             n66_N1024=c66, n128_N256=chol_t[(128, 256)]),
         dict(name="hull_ref_face_depth", route="cuda",
              source=src + "hull_sat.cu",
              replaces="mujoco_sim_tpu/ops/pallas_sat.py:40",
              launches=counts["hull_ref_face_depth"],
              launches_precise_path=pcounts["hull_ref_face_depth"],
              max_abs_err=worst["hull_ref_face_depth"],
-             ms=t["mesh_mesh"]["ms"], plain_ms=t["mesh_mesh"]["plain_ms"],
-             bound_ms=t["mesh_mesh"]["bound_ms"],
-             bound_by=t["mesh_mesh"]["bound_by"], library_ms=None),
+             ms=mm["ms"], device_ms=mm["device_ms"], plain_ms=mm["plain_ms"],
+             bound_ms=mm["bound_ms"], bound_by=mm["bound_by"],
+             library_ms=None,
+             box_mesh=dict(N=bm["N"], ms=bm["ms"],
+                           device_ms=bm["device_ms"],
+                           plain_ms=bm["plain_ms"],
+                           bound_ms=bm["bound_ms"],
+                           bound_by=bm["bound_by"])),
         dict(name="mtv_query", route="cuda", source=src + "mtv_query.cu",
              replaces="mujoco_sim_tpu/ops/pallas_refine.py:73",
              launches=counts["mtv_query"],
@@ -1316,6 +1427,10 @@ def main(argv):
              launches_manip_step=counts["support_minmax"],
              max_abs_err=worst["support_minmax"],
              ms=t["support_minmax_C256"]["ms"],
+             device_ms=t["support_minmax_C256"]["device_ms"],
+             device_ms_by_width={
+                 k[len("support_minmax_"):]: v["device_ms"]
+                 for k, v in t.items() if k.startswith("support_minmax_C")},
              plain_ms=t["support_minmax_C256"]["plain_ms"],
              bound_ms=t["support_minmax_C256"]["bound_ms"],
              bound_by=t["support_minmax_C256"]["bound_by"],
@@ -1330,7 +1445,8 @@ def main(argv):
              bound_ms=fact_step_t["bound_ms"],
              bound_by=fact_step_t["bound_by"],
              library_ms=fact_step_t["library_ms"],
-             ms_random_n42_N1024=fact_t[(42, MANIP_NENV)]["ms"]),
+             ms_random_n42_N1024=fact_t[(42, MANIP_NENV)]["ms"],
+             n66_N1024=f66, n128_N256=fact_t[(128, 256)]),
         # no step calls it: its path is its own entry point
         # (scripts/torch_sat_proto.py), driven in face_sat_vs_plain with
         # the count set to 0 just before and read just after
@@ -1339,6 +1455,7 @@ def main(argv):
              launches=fsat_launches,
              launches_precise_step=pcounts["face_sat_depth"],
              max_abs_err=fsat_err, ms=fsat_t["ms"],
+             device_ms=fsat_t["device_ms"],
              plain_ms=fsat_t["plain_ms"], bound_ms=fsat_t["bound_ms"],
              bound_by=fsat_t["bound_by"], library_ms=None),
     ]

@@ -50,4 +50,17 @@ __device__ __forceinline__ void wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Close the group of the copies issued since the last commit (a double
+// buffer commits one group per stage).
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `Pending` of this thread's committed groups are still
+// in flight (1: every stage but the newest has landed).
+template <int Pending>
+__device__ __forceinline__ void wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
 }  // namespace asynccopy

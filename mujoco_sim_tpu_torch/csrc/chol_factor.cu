@@ -21,6 +21,13 @@
 // of L (zeros above the diagonal) into the staged matrix's place in shared
 // memory, and the warp copies that out with coalesced stores.
 //
+// Above the size classes (n > 64) chol_factor_big_kernel runs factor_block
+// (chol_factor.cuh, shared with chol_solve.cu): one block a system, the
+// matrix in dynamic shared memory, or past the card's shared memory
+// (n > 239 on the H100) in the output itself, then L written with zeros
+// above the diagonal.  Its bound there is the column chain of 2 n
+// barriers; a simple kernel, not a tuned one.
+//
 // Build (no PyTorch headers; loaded with ctypes by ops/chol_factor.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 #include "chol_factor.cuh"
@@ -72,6 +79,50 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock* kWarp)
   }
 }
 
+// One system a block (n > kMaxN): factored in dynamic shared memory when
+// `in_smem`, else in place in its slot of L (stride n); the column buffer
+// in shared memory either way.
+__global__ void __launch_bounds__(256)
+    chol_factor_big_kernel(const float* __restrict__ A, float* __restrict__ L,
+                           int n, int in_smem) {
+  extern __shared__ __align__(16) float smem[];
+  const long long sys = blockIdx.x;
+  float* Ls = L + sys * n * n;
+  const int ld = in_smem ? row_stride(n) : n;
+  float* col = smem;
+  float* S = in_smem ? smem + n : Ls;
+  load_lower(S, ld, A + sys * n * n, n);
+  __syncthreads();
+  factor_block<false>(S, ld, nullptr, col, n);
+  // the factor with zeros above the diagonal (in place: each thread reads
+  // only the entries it writes)
+  for (int t = threadIdx.x; t < n * n; t += blockDim.x) {
+    const int r = t / n, c = t - r * n;
+    Ls[t] = c <= r ? S[r * ld + c] : 0.0f;
+  }
+}
+
+int launch_big(const float* A, float* L, int N, int n, cudaStream_t stream) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const size_t col_bytes = static_cast<size_t>(n) * sizeof(float);
+  const size_t full =
+      col_bytes + static_cast<size_t>(n) * row_stride(n) * sizeof(float);
+  const bool in_smem = full <= static_cast<size_t>(optin);
+  const size_t bytes = in_smem ? full : col_bytes;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chol_factor_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  chol_factor_big_kernel<<<N, block_threads(n), bytes, stream>>>(
+      A, L, n, in_smem ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int NP>
 int launch(const float* A, float* L, int N, int n, cudaStream_t stream) {
   const int per_warp = warp_floats<NP>(n) * static_cast<int>(sizeof(float));
@@ -86,11 +137,13 @@ int launch(const float* A, float* L, int N, int n, cudaStream_t stream) {
 }  // namespace
 
 // A (N, n, n) -> L (N, n, n): contiguous float32 on the device.  Returns the
-// cudaError_t of the launch (0 = cudaSuccess); 1 for n out of range.
+// cudaError_t of the launch (0 = cudaSuccess); 1 for n out of range (n < 1,
+// or n n past 2^31 - 1).
 extern "C" int chol_factor_f32(const float* A, float* L, int N, int n,
                                void* stream) {
-  if (n < 1 || n > kMaxN || N < 0) return 1;
+  if (n < 1 || n > 46340 || N < 0) return 1;
   if (N == 0) return 0;
-  return CHOLK_DISPATCH(n, launch, A, L, N, n,
-                        static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > kMaxN) return launch_big(A, L, N, n, s);
+  return CHOLK_DISPATCH(n, launch, A, L, N, n, s);
 }

@@ -35,6 +35,10 @@
 // to 0, never becomes a pivot, and no shuffle reads it.
 // Arithmetic is plain f32 FMA: no tensor cores, no TF32 (stiff rows,
 // efc_D ~ 1e9, lose the factor in reduced precision).
+//
+// Systems above the classes (n > kMaxN) take factor_block below instead:
+// one block a system, the matrix in dynamic shared memory while it fits
+// (n <= 239 on the H100), else in device memory.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -247,6 +251,82 @@ __device__ __forceinline__ void factor_rows(
   float d = __shfl_sync(kFull, a[0][0], 0, Tile<NP>::kLanes);
   float pinv = pivot_rsqrt(d);
   columns_from<NP, kWithRhs, 0>(a, inv, diag, y, col, n, l, d, pinv);
+}
+
+// ---- systems above the size classes (n > kMaxN) --------------------------
+//
+// One block of block_threads(n) threads a system.  The matrix sits at S with
+// row stride ld: dynamic shared memory (ld = n | 1, so the threads of a
+// column access hit distinct banks) or, past the card's shared memory, a
+// device-memory workspace (chol_solve) or the output itself (chol_factor).
+// The scaled column of each step and the right-hand side sit in `col` and
+// `y`, n floats each of shared memory.  It is a simple kernel that is right
+// for any n: the register classes above carry the step's own sizes.
+
+__host__ __device__ inline int block_threads(int n) { return n <= 128 ? 128 : 256; }
+
+// The right-looking column factor of the lower triangle of the n x n matrix
+// at S, fused with the forward substitution y = L^-1 y when kWithRhs.  At
+// column j every thread reads the pivot and takes inv = 1 / sqrt(max(a_jj,
+// 1e-30)) (IEEE square root and division: the references' formula); the
+// threads scale the column below the diagonal into S and into col; a
+// barrier; each thread then updates whole rows i > j of the trailing lower
+// triangle, a[i][k] -= l_ij l_kj for j < k <= i, and y_i -= l_ij y_j; a
+// barrier.  The row update reads the column from col, which no thread
+// writes in that phase, four entries at a time: the loads of a row are
+// independent, so they overlap (with one array the compiler must assume
+// every store may feed the next load, and each multiply-add waited a full
+// shared-memory round trip).  The diagonal becomes L_jj = a_jj * inv, as
+// the references store it (for a floored pivot that is not the square root
+// of a_jj).  The upper triangle is neither read nor written.
+template <bool kWithRhs>
+__device__ void factor_block(float* S, int ld, float* __restrict__ y,
+                             float* __restrict__ col, int n) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int j = 0; j < n; ++j) {
+    const float d = S[j * ld + j];
+    const float inv = 1.0f / sqrtf(fmaxf(d, 1e-30f));
+    const float yj = kWithRhs ? y[j] * inv : 0.0f;
+    for (int i = j + 1 + tid; i < n; i += nt) {
+      const float l = S[i * ld + j] * inv;
+      S[i * ld + j] = l;
+      col[i] = l;
+    }
+    __syncthreads();
+    // nobody reads the pivot's own entries until the next barrier
+    if (tid == 0) {
+      S[j * ld + j] = d * inv;
+      if (kWithRhs) y[j] = yj;
+    }
+    for (int i = j + 1 + tid; i < n; i += nt) {
+      float* row = S + i * ld;
+      const float m = -col[i];
+      int k = j + 1;
+      for (; k + 3 <= i; k += 4) {
+        const float c0 = col[k], c1 = col[k + 1], c2 = col[k + 2],
+                    c3 = col[k + 3];
+        const float r0 = row[k], r1 = row[k + 1], r2 = row[k + 2],
+                    r3 = row[k + 3];
+        row[k] = fmaf(m, c0, r0);
+        row[k + 1] = fmaf(m, c1, r1);
+        row[k + 2] = fmaf(m, c2, r2);
+        row[k + 3] = fmaf(m, c3, r3);
+      }
+      for (; k <= i; ++k) row[k] = fmaf(m, col[k], row[k]);
+      if (kWithRhs) y[i] = fmaf(m, yj, y[i]);
+    }
+    __syncthreads();
+  }
+}
+
+// The n x n lower triangle of the row-major As into S (stride ld), with
+// coalesced reads; the caller places a barrier after it.
+__device__ __forceinline__ void load_lower(float* S, int ld, const float* As,
+                                           int n) {
+  for (int t = threadIdx.x; t < n * n; t += blockDim.x) {
+    const int r = t / n, c = t - r * n;
+    if (c <= r) S[r * ld + c] = As[t];
+  }
 }
 
 }  // namespace cholk

@@ -40,6 +40,17 @@
 // Hessian carries stiff rows (efc_D ~ 1e9) that lose the factor in reduced
 // precision, the reason the TPU kernel stays on the VPU.
 //
+// Above the size classes (n > 64, a model with more than 64 dofs) the
+// same function runs as chol_solve_big_kernel: one block a system, the
+// matrix in dynamic shared memory (or, past n = 239 on the H100, in a
+// device-memory workspace the wrapper allocates), factor_block's right-
+// looking column factor with the block's threads over the trailing rows
+// and the forward substitution fused, then a backward substitution of one
+// barrier a row that divides by L_jj as the references do.  What bounds it
+// there is latency: a chain of 2 n barriers a system, and each thread's
+// row update, two shared loads and a store per multiply-add, four entries
+// in flight at a time.  It is the simple kernel, not a tuned one.
+//
 // Build (no PyTorch headers; loaded with ctypes by ops/chol.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 #include "chol_factor.cuh"
@@ -106,6 +117,73 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock* kWarp)
   }
 }
 
+// x = L^-T y over the factor at S (row j of L at S[j * ld + i], i < j),
+// one barrier a step: x_j = y_j / L_jj, then y_i -= L_ji x_j for i < j.
+__device__ void backward_block(const float* S, int ld, float* y, float* x,
+                               int n) {
+  for (int j = n - 1; j >= 0; --j) {
+    const float xj = y[j] / S[j * ld + j];
+    for (int i = threadIdx.x; i < j; i += blockDim.x)
+      y[i] = fmaf(-S[j * ld + i], xj, y[i]);
+    if (threadIdx.x == 0) x[j] = xj;
+    __syncthreads();
+  }
+}
+
+// One system a block (n > kMaxN): the matrix in dynamic shared memory, or
+// with `work` (N n n floats) in device memory; the right-hand side and the
+// column buffer in shared memory either way.
+__global__ void __launch_bounds__(256)
+    chol_solve_big_kernel(const float* __restrict__ A,
+                          const float* __restrict__ b, float* __restrict__ x,
+                          float* __restrict__ work, int n, int ld) {
+  extern __shared__ __align__(16) float smem[];
+  const long long sys = blockIdx.x;
+  float* y = smem;
+  float* col = smem + n;
+  float* S = work == nullptr ? smem + 2 * n : work + sys * n * ld;
+  load_lower(S, ld, A + sys * n * n, n);
+  for (int t = threadIdx.x; t < n; t += blockDim.x) y[t] = b[sys * n + t];
+  __syncthreads();
+  factor_block<true>(S, ld, y, col, n);
+  backward_block(S, ld, y, x + sys * n, n);
+}
+
+// Bytes of dynamic shared memory the big kernel needs for n with the
+// matrix in it (or without: 2 n floats), and the card's opt-in limit.
+size_t big_smem_bytes(int n, bool matrix) {
+  return ((matrix ? static_cast<size_t>(n) * row_stride(n) : 0) + 2 * n) *
+         sizeof(float);
+}
+
+int smem_optin() {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return optin;
+}
+
+bool big_fits_smem(int n) {
+  return big_smem_bytes(n, true) <= static_cast<size_t>(smem_optin());
+}
+
+int launch_big(const float* A, const float* b, float* x, float* work, int N,
+               int n, cudaStream_t stream) {
+  const bool in_smem = big_fits_smem(n);
+  if (!in_smem && work == nullptr) return 1;
+  const size_t bytes = big_smem_bytes(n, in_smem);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chol_solve_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  chol_solve_big_kernel<<<N, block_threads(n), bytes, stream>>>(
+      A, b, x, in_smem ? nullptr : work, n, in_smem ? row_stride(n) : n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int NP>
 int launch(const float* A, const float* b, float* x, int N, int n,
            cudaStream_t stream) {
@@ -120,13 +198,23 @@ int launch(const float* A, const float* b, float* x, int N, int n,
 
 }  // namespace
 
-// A (N, n, n), b (N, n), x (N, n): contiguous float32 on the device.
+// Floats of device-memory workspace a system needs: 0 where the kernel
+// holds it in registers or shared memory, n n past the card's shared memory
+// (n > 239 on the H100).
+extern "C" long long chol_solve_work_floats(int n) {
+  if (n <= kMaxN || big_fits_smem(n)) return 0;
+  return static_cast<long long>(n) * n;
+}
+
+// A (N, n, n), b (N, n), x (N, n): contiguous float32 on the device; work:
+// N chol_solve_work_floats(n) floats on the device, or null where that is 0.
 // Returns the cudaError_t of the launch (0 = cudaSuccess); 1 for n out of
-// range.
-extern "C" int chol_solve_f32(const float* A, const float* b, float* x, int N,
-                              int n, void* stream) {
-  if (n < 1 || n > kMaxN || N < 0) return 1;
+// range (n < 1, or n n past 2^31 - 1) or a missing workspace.
+extern "C" int chol_solve_f32(const float* A, const float* b, float* x,
+                              float* work, int N, int n, void* stream) {
+  if (n < 1 || n > 46340 || N < 0) return 1;
   if (N == 0) return 0;
-  return CHOLK_DISPATCH(n, launch, A, b, x, N, n,
-                        static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > kMaxN) return launch_big(A, b, x, work, N, n, s);
+  return CHOLK_DISPATCH(n, launch, A, b, x, N, n, s);
 }

@@ -10,7 +10,9 @@ from a switch:
   ops/cuda_build.py with nvcc at first use into ``_build/``, loaded with
   ctypes) or raises.  The kernel keeps each matrix in the registers of the
   lanes that own its rows (size classes 8, 16, 32, 48, 64; several systems
-  a warp below n = 16) and takes 1 <= n <= 64;
+  a warp below n = 16); above n = 64 it factors each system in one block,
+  in shared memory, or past the card's shared memory (n > 239 on the
+  H100) in a device-memory workspace this wrapper allocates.  Any n >= 1;
 * a CPU tensor takes the plain twin ``chol_solve_plain`` (ops/linalg.py
   cholesky + cho_solve, the JAX package's CPU path).
 
@@ -29,7 +31,7 @@ from mujoco_sim_tpu_torch.ops import cuda_build, linalg
 
 LAUNCHES = 0
 
-MAX_N = 64
+CLASS_MAX_N = 64      # the register-resident size classes; above, a block
 SOURCE = cuda_build.source_path("chol_solve")
 
 
@@ -44,25 +46,35 @@ def _load() -> ctypes.CDLL:
     lib = cuda_build.load("chol_solve")
     lib.chol_solve_f32.restype = ctypes.c_int
     lib.chol_solve_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.chol_solve_work_floats.restype = ctypes.c_longlong
+    lib.chol_solve_work_floats.argtypes = [ctypes.c_int]
     return lib
 
 
 def chol_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: A (..., n, n) SPD, b (..., n) -> x (..., n),
-    float32, contiguous, on one CUDA device, 1 <= n <= 64."""
+    float32, contiguous, on one CUDA device, n >= 1."""
     global LAUNCHES
     n = A.shape[-1]
     if A.dim() < 2 or A.shape[-2] != n or b.shape != A.shape[:-1]:
         raise ValueError(f"chol_solve_cuda: shapes {tuple(A.shape)} / "
                          f"{tuple(b.shape)}")
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"chol_solve_cuda: n={n} outside 1..{MAX_N}")
+    if n < 1:
+        raise ValueError(f"chol_solve_cuda: n={n} must be at least 1")
     dev = cuda_build.check_f32_cuda("chol_solve_cuda", A=A, b=b)
+    lib = _load()
     x = torch.empty_like(b)
-    rc = cuda_build.launch(dev, _load().chol_solve_f32, A.data_ptr(),
-                           b.data_ptr(), x.data_ptr(), b.numel() // n, n)
+    N = b.numel() // n
+    work = None
+    if n > CLASS_MAX_N:
+        per = lib.chol_solve_work_floats(n)
+        if per:
+            work = torch.empty(N * per, dtype=torch.float32, device=dev)
+    rc = cuda_build.launch(dev, lib.chol_solve_f32, A.data_ptr(),
+                           b.data_ptr(), x.data_ptr(),
+                           None if work is None else work.data_ptr(), N, n)
     if rc != 0:
         raise RuntimeError(f"chol_solve kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -8,8 +8,9 @@ solves a matrix right-hand side with it.
 
 ``chol_factor`` picks its path from the tensor's device, never from a
 switch: a CUDA tensor launches csrc/chol_factor.cu (built by
-ops/cuda_build.py at first use; its factor is the register-resident one
-chol_solve.cu runs, shared through csrc/chol_factor.cuh) or raises; a CPU
+ops/cuda_build.py at first use; its factor is the one chol_solve.cu runs,
+shared through csrc/chol_factor.cuh: register-resident up to n = 64, one
+block a system above, any n >= 1) or raises; a CPU
 tensor takes the plain twin ``chol_factor_plain`` (ops/linalg.cholesky).
 ``LAUNCHES`` counts kernel launches and nothing else.
 """
@@ -25,7 +26,6 @@ from mujoco_sim_tpu_torch.ops import cuda_build, linalg
 
 LAUNCHES = 0
 
-MAX_N = 64
 SOURCE = cuda_build.source_path("chol_factor")
 
 
@@ -47,14 +47,14 @@ def _load() -> ctypes.CDLL:
 
 def chol_factor_cuda(A: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: A (..., n, n) SPD -> L (..., n, n) lower,
-    float32, contiguous, on a CUDA device, 1 <= n <= 64."""
+    float32, contiguous, on a CUDA device, n >= 1."""
     global LAUNCHES
     fn = "chol_factor_cuda"
     if A.dim() < 2 or A.shape[-2] != A.shape[-1]:
         raise ValueError(f"{fn}: shape {tuple(A.shape)}")
     n = A.shape[-1]
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"{fn}: n={n} outside 1..{MAX_N}")
+    if n < 1:
+        raise ValueError(f"{fn}: n={n} must be at least 1")
     dev = cuda_build.check_f32_cuda(fn, A=A)
     L = torch.empty_like(A)
     rc = cuda_build.launch(dev, _load().chol_factor_f32, A.data_ptr(),

@@ -486,16 +486,6 @@ def _hull_sdf(pts_local, planes):
     return vals.amax(dim=-1), vals.argmax(dim=-1)
 
 
-def _hull_ref_face_depth(pts_local, planes, k_out, pts_mask=None,
-                         lateral_filter=False, lateral_slack=0.0):
-    """ops/hull_sat.hull_ref_face_depth (the CUDA kernel on the card, its
-    plain twin on the CPU) on contiguous operands."""
-    if pts_mask is not None:
-        pts_mask = pts_mask.contiguous()
-    return hull_ref_face_depth(pts_local.contiguous(), planes.contiguous(),
-                               k_out, pts_mask, lateral_filter, lateral_slack)
-
-
 def _local_face_normals(planes, fidx):
     """planes (..., f, 4) at fidx (..., k) -> local outward normals
     (..., k, 3)."""
@@ -604,7 +594,9 @@ def _box_mesh(p1, R1, s1, p2, R2, verts2, planes2, vmask2):
     pts = p1[..., None, :] + _rotate_rows_fwd(
         R1, _corners(p1) * s1[..., None, :])
     loc2 = _rotate_rows(R2, pts - p2[..., None, :])
-    d_a, top, nref, sep_h = _hull_ref_face_depth(loc2, planes2, 2)
+    # ops/hull_sat: the CUDA kernel on the card, its twin on the CPU; every
+    # operand here is contiguous as built (the kernel's wrapper checks)
+    d_a, top, nref, sep_h = hull_ref_face_depth(loc2, planes2, 2)
     pos_a = _pick_rows(pts, top)
     n_a = -((R2 * nref[..., None, :]).sum(-1))[..., None, :]
     n_a = n_a.expand(pos_a.shape)
@@ -666,9 +658,9 @@ def _mesh_mesh(p1, R1, verts1, planes1, vmask1,
     plns = torch.cat([planes2, planes1], dim=-3)
     msks = torch.cat([vmask1, vmask2], dim=-2)
     slk = torch.cat([0.15 * rb2, 0.15 * rb1], dim=-1)
-    d2, top2s, nref, sep2 = _hull_ref_face_depth(locs, plns, 2, msks,
-                                                 lateral_filter=True,
-                                                 lateral_slack=slk)
+    d2, top2s, nref, sep2 = hull_ref_face_depth(locs, plns, 2, msks,
+                                                lateral_filter=True,
+                                                lateral_slack=slk)
     P = loc2.shape[-3]
     d_a, d_b = d2[..., :P, :], d2[..., P:, :]
     top, top2 = top2s[..., :P, :], top2s[..., P:, :]

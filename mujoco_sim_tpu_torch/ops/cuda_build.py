@@ -47,7 +47,7 @@ KERNELS = {
     "support_minmax": ("support_minmax.cu", _NO_FMA),
     "face_sat": ("face_sat.cu", _NO_FMA),
 }
-HEADERS = ("support.cuh", "chol_factor.cuh", "async_copy.cuh")
+HEADERS = ("support.cuh", "chol_factor.cuh", "async_copy.cuh", "face_sat.cuh")
 
 # name -> dict(path, seconds, ptxas) of the builds this process made or found
 BUILD_INFO: dict = {}

@@ -26,10 +26,10 @@ import functools
 import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build
+from mujoco_sim_tpu_torch.ops.hull_sat import SMEM_BYTES, smem_fits
 
 LAUNCHES = 0
 SOURCE = cuda_build.source_path("face_sat")
-_SMEM_FLOATS_PER_BLOCK = 48 * 1024 // 4 // 4     # 4 instances per block
 _BIG = 1e9
 
 
@@ -92,9 +92,9 @@ def face_sat_depth_cuda(pts, planes, vmask, K=2):
                          f"{tuple(planes.shape)} / {tuple(vmask.shape)}")
     if not 1 <= K <= V:
         raise ValueError(f"{fn}: K={K} must be in 1..V (V={V})")
-    if 5 * V + 4 * F > _SMEM_FLOATS_PER_BLOCK:
+    if not smem_fits(V, F):
         raise ValueError(f"{fn}: V={V}, F={F} exceed the kernel's shared "
-                         "memory (5 V + 4 F <= 3072)")
+                         f"memory ({SMEM_BYTES} bytes a block)")
     dev = cuda_build.check_f32_cuda(fn, pts=pts, planes=planes, vmask=vmask)
     N = 1
     for s in lead:

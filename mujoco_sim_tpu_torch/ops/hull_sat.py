@@ -23,7 +23,21 @@ from mujoco_sim_tpu_torch.ops import cuda_build
 
 LAUNCHES = 0
 SOURCE = cuda_build.source_path("hull_sat")
-_SMEM_FLOATS_PER_BLOCK = 48 * 1024 // 4 // 4     # 4 instances per block
+# the opt-in shared memory of one block on the H100 (and H200)
+SMEM_BYTES = 232448
+
+
+def smem_fits(V: int, F: int) -> bool:
+    """Whether one warp's tables fit a block's shared memory: the limit of
+    both face-SAT kernels (csrc/face_sat.cuh, stage_floats / team_floats):
+    a double buffer of the points, mask, planes (padded to a multiple of
+    8) and slack a team, F + 2 V floats of scratch above V = 32, four teams
+    a warp up to V = 32.  That is F <= ~1780 up to V = 32 and
+    10 V + 9 F <= ~58 000 beyond."""
+    r4 = lambda n: (n + 3) // 4 * 4
+    stage = r4(3 * V) + r4(V) + 4 * ((F + 7) // 8 * 8) + 4
+    teams, scratch = (4, 0) if V <= 32 else (1, r4(F + 2 * V))
+    return teams * (2 * stage + scratch) * 4 <= SMEM_BYTES
 
 
 def _pts_vs_planes(pts_local, planes):
@@ -93,7 +107,7 @@ def _load() -> ctypes.CDLL:
     lib = cuda_build.load("hull_sat")
     lib.hull_sat_f32.restype = ctypes.c_int
     lib.hull_sat_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_void_p]
     return lib
 
 
@@ -101,7 +115,9 @@ def hull_ref_face_depth_cuda(pts_local, planes, k_out, pts_mask=None,
                              lateral_filter=False, lateral_slack=0.0):
     """Launch the CUDA kernel.  pts_local (..., V, 3), planes (..., F, 4),
     pts_mask (..., V) or None, lateral_slack a float or (...,): float32,
-    contiguous, on one CUDA device."""
+    contiguous, on one CUDA device.  A missing mask and a float slack reach
+    the kernel as a null pointer and a float: nothing is allocated but the
+    outputs."""
     global LAUNCHES
     fn = "hull_ref_face_depth_cuda"
     lead = pts_local.shape[:-2]
@@ -110,25 +126,25 @@ def hull_ref_face_depth_cuda(pts_local, planes, k_out, pts_mask=None,
             or planes.shape != lead + (F, 4)):
         raise ValueError(f"{fn}: shapes {tuple(pts_local.shape)} / "
                          f"{tuple(planes.shape)}")
-    if pts_mask is None:
-        pts_mask = torch.ones(lead + (V,), dtype=pts_local.dtype,
-                              device=pts_local.device)
-    if pts_mask.shape != lead + (V,):
-        raise ValueError(f"{fn}: mask shape {tuple(pts_mask.shape)}")
+    operands = dict(pts_local=pts_local, planes=planes)
+    if pts_mask is not None:
+        if pts_mask.shape != lead + (V,):
+            raise ValueError(f"{fn}: mask shape {tuple(pts_mask.shape)}")
+        operands["pts_mask"] = pts_mask
+    slack_scalar = 0.0
     if isinstance(lateral_slack, torch.Tensor):
-        slack = lateral_slack
-        if slack.shape != lead:
-            raise ValueError(f"{fn}: slack shape {tuple(slack.shape)}")
+        if lateral_slack.shape != lead:
+            raise ValueError(f"{fn}: slack shape "
+                             f"{tuple(lateral_slack.shape)}")
+        operands["slack"] = lateral_slack
     else:
-        slack = torch.full(lead, float(lateral_slack), dtype=pts_local.dtype,
-                           device=pts_local.device)
+        slack_scalar = float(lateral_slack)
     if not 1 <= K < V:
         raise ValueError(f"{fn}: k_out={K} must be in 1..V-1 (V={V})")
-    if 6 * V + 4 * F > _SMEM_FLOATS_PER_BLOCK:
+    if not smem_fits(V, F):
         raise ValueError(f"{fn}: V={V}, F={F} exceed the kernel's shared "
-                         "memory (6 V + 4 F <= 3072)")
-    dev = cuda_build.check_f32_cuda(fn, pts_local=pts_local, planes=planes,
-                                    pts_mask=pts_mask, slack=slack)
+                         f"memory ({SMEM_BYTES} bytes a block)")
+    dev = cuda_build.check_f32_cuda(fn, **operands)
     N = 1
     for s in lead:
         N *= s
@@ -138,10 +154,11 @@ def hull_ref_face_depth_cuda(pts_local, planes, k_out, pts_mask=None,
     sep = torch.empty(lead, dtype=torch.float32, device=dev)
     rc = cuda_build.launch(
         dev, _load().hull_sat_f32,
-        pts_local.data_ptr(), planes.data_ptr(), pts_mask.data_ptr(),
-        slack.data_ptr(), depth.data_ptr(), idx.data_ptr(),
-        nref.data_ptr(), sep.data_ptr(), N, V, F, K,
-        int(bool(lateral_filter)))
+        pts_local.data_ptr(), planes.data_ptr(),
+        None if pts_mask is None else pts_mask.data_ptr(),
+        operands["slack"].data_ptr() if "slack" in operands else None,
+        depth.data_ptr(), idx.data_ptr(), nref.data_ptr(), sep.data_ptr(),
+        N, V, F, K, int(bool(lateral_filter)), slack_scalar)
     if rc != 0:
         raise RuntimeError(f"hull_sat kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

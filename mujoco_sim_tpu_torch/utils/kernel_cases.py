@@ -1,4 +1,4 @@
-"""Seeded edge-case inputs of the chol_solve and mtv_query kernels.
+"""Seeded edge-case inputs of the Cholesky, MTV and face-SAT kernels.
 
 One set of cases, made with numpy from a seed, so that the same inputs go
 through three comparisons: the plain twins against the JAX package on the
@@ -9,7 +9,12 @@ register-resident Cholesky (8, 16, 32, 48, 64: both sides of every edge),
 batches that fill no warp evenly, a stiff row, a pivot at the 1e-30 floor;
 for the MTV query the edge ranking's corner cases (fewer edges than K, a
 hull with every edge masked, exactly tied scores) and the analytic
-cylinder support on either side.
+cylinder support on either side; for the face-SAT queries (hull_sat and
+face_sat) the layouts of csrc/face_sat.cuh (V <= 8, <= 32 and the tiled
+V > 32; F past a multiple of the face groups), K = V - 1, an instance with
+every point masked, exactly tied reference faces and depths, a lateral
+filter that drops every point, per-instance and scalar slack, no mask; and
+systems above the register classes of the Cholesky kernels.
 
 Everything is float64 numpy; callers cast.
 """
@@ -24,6 +29,12 @@ CHOL_BATCH = 37          # a multiple of nothing the kernels tile by
 CHOL_EDGE_SIZES = (1, 2, 8, 9, 16, 17, 32, 33, 48, 49, 63, 64)
 CHOL_CASES = tuple(f"n{n}" for n in CHOL_EDGE_SIZES) + ("stiff_n33", "floor")
 
+# above the register-resident classes: one block a system (n <= 239 in
+# shared memory on the H100, beyond in device memory)
+CHOL_BIG_SIZES = (65, 96, 128, 238, 300)
+CHOL_BIG_CASES = tuple(f"n{n}" for n in CHOL_BIG_SIZES) + ("stiff_n96",
+                                                         "floor_n72")
+
 MTV_BATCH = 37
 MTV_CASES = ("e_lt_k", "masked_A", "masked_B", "duplicates", "cyl_A", "cyl_B",
              "cyl_both")
@@ -32,6 +43,33 @@ MTV_CASES = ("e_lt_k", "masked_A", "masked_B", "duplicates", "cyl_A", "cyl_B",
 def _spd(rng, N, n):
     A = rng.standard_normal((N, n, n))
     return A @ A.transpose(0, 2, 1) + n * np.eye(n)
+
+
+def chol_big_case(name: str, seed: int = 0):
+    """(A (N, n, n), b (N, n)) of one of CHOL_BIG_CASES, N = 7 (a batch
+    that is no multiple of anything; one block a system).  ``stiff_n96``: a
+    1e9 diagonal entry in row 40.  ``floor_n72``: the leading 2 x 2 block
+    of ``floor`` (chol_case) in a 72 x 72 system, so its second pivot is
+    floored."""
+    rng = np.random.default_rng([seed, 100 + CHOL_BIG_CASES.index(name)])
+    N = 7
+    if name == "stiff_n96":
+        A = _spd(rng, N, 96)
+        A[:, 40, 40] += 1e9
+        return A, rng.standard_normal((N, 96))
+    if name == "floor_n72":
+        n = 72
+        s = 4.0 ** (np.arange(N) % 3)
+        A = np.zeros((N, n, n))
+        A[:, 0, 0], A[:, 0, 1], A[:, 1, 0] = 4 * s, 2 * s, 2 * s
+        A[:, 1, 1] = s * (1.0 - 2.0 ** -10)
+        A[:, 2:, 2:] = _spd(rng, N, n - 2)
+        b = rng.standard_normal((N, n))
+        b[:, 0] = 0.0
+        b[:, 1] = (1.0 + np.arange(N)) * 2.0 ** -84
+        return A, b
+    n = int(name[1:])
+    return _spd(rng, N, n), rng.standard_normal((N, n))
 
 
 def chol_case(name: str, seed: int = 0):
@@ -107,3 +145,51 @@ def mtv_case(name: str, seed: int = 0):
     out = {k + "A": v for k, v in A.items()}
     out.update({k + "B": v for k, v in B.items()})
     return out
+
+
+SAT_BATCH = 37            # not a multiple of the instances a warp holds
+SAT_SIZES = tuple((V, F) for V in (8, 24, 32, 33) for F in (44, 60, 65))
+SAT_CASES = tuple(f"v{V}_f{F}" for V, F in SAT_SIZES) + (
+    "v8_f44_nomask", "v24_f44_nomask")
+
+
+def sat_case(name: str, seed: int = 0):
+    """dict(pts (37, V, 3), planes (37, F, 4), mask (37, V) or None, slack
+    (37,) or a float, K = V - 1) of one of SAT_CASES.
+
+    Points and unit face normals are random (offsets U(0.3, 1.2), so the
+    points straddle the planes); a quarter of the points masked.  Instance
+    1 has every point masked.  Instances 0, 3, 6, ...: face F - 1 repeats
+    the reference face (an exact tie of the per-face minima: the lower
+    index wins) and point V - 1 repeats point 2, both live (exactly tied
+    depths).  Slack U(0, 0.3) per instance, except instances 2, 7, 12, ...
+    at -10, where the lateral filter drops every point (and so keeps all).
+    ``*_nomask``: no mask (None) and a scalar slack of 0.05.
+    """
+    rng = np.random.default_rng([seed, 200 + SAT_CASES.index(name)])
+    V, F = (int(x[1:]) for x in name.split("_")[:2])
+    N = SAT_BATCH
+    pts = rng.standard_normal((N, V, 3))
+    n = rng.standard_normal((N, F, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    planes = np.concatenate([n, rng.uniform(0.3, 1.2, (N, F, 1))], axis=-1)
+    nomask = name.endswith("_nomask")
+    mask = (rng.uniform(size=(N, V)) > 0.25).astype(np.float64)
+    mask[:, 0] = 1.0
+    if not nomask:
+        mask[1] = 0.0
+    tie = np.arange(N) % 3 == 0
+    pts[tie, V - 1] = pts[tie, 2]
+    mask[tie, V - 1] = mask[tie, 2] = 1.0
+    # the reference face of each tie instance, in float32 as the kernels
+    # see it, repeated as face F - 1
+    p32, n32 = pts.astype(np.float32), planes.astype(np.float32)
+    vals = ((p32[:, :, None, :] * n32[:, None, :, :3]).sum(-1)
+            - n32[:, None, :, 3])
+    vals = np.where(mask[:, :, None] > 0.5, vals, np.float32(1e9))
+    ref = vals.min(1)[:, : F - 1].argmax(-1)
+    planes[tie, F - 1] = planes[tie, ref[tie]]
+    slack = rng.uniform(0.0, 0.3, N)
+    slack[2::5] = -10.0
+    return dict(pts=pts, planes=planes, mask=None if nomask else mask,
+                slack=0.05 if nomask else slack, K=V - 1)

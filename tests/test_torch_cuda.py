@@ -95,9 +95,38 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device):
         chol.chol_solve(A, b)
     with pytest.raises(TypeError):                      # not float32
         chol.chol_solve(A.double().contiguous(), b.double())
-    with pytest.raises(ValueError):                     # n > 64
-        chol.chol_solve(torch.eye(65, device=cuda_device)[None],
-                        torch.ones(1, 65, device=cuda_device))
+    with pytest.raises(ValueError):                     # n < 1
+        chol.chol_solve(torch.ones(1, 0, 0, device=cuda_device),
+                        torch.ones(1, 0, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", kernel_cases.CHOL_BIG_CASES)
+def test_chol_kernels_above_the_size_classes(case, cuda_device):
+    """n > 64: one block a system, in shared memory up to n = 239 and in
+    device memory beyond (n = 300), a stiff 1e9 row and a floored pivot:
+    chol_solve and chol_factor launch their kernels and agree with their
+    twins at the band of the size classes (2e-5)."""
+    A, b = kernel_cases.chol_big_case(case)
+    At = torch.tensor(A, dtype=torch.float32, device=cuda_device)
+    bt = torch.tensor(b, dtype=torch.float32, device=cuda_device)
+    before = chol.LAUNCHES, chol_factor.LAUNCHES
+    x = chol.chol_solve(At, bt)
+    L = chol_factor.chol_factor(At)
+    torch.cuda.synchronize()
+    assert (chol.LAUNCHES, chol_factor.LAUNCHES) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(L).all())
+    torch.testing.assert_close(x, chol.chol_solve_plain(At, bt),
+                               rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(L, chol_factor.chol_factor_plain(At),
+                               rtol=2e-5, atol=2e-5)
+    assert bool((torch.triu(L, 1) == 0).all())
+    if case == "stiff_n96":
+        r = (At @ x[..., None])[..., 0] - bt
+        assert float(r.abs().max()) < 1e-2
+    if case == "floor_n72":
+        assert float(x[:, 1].abs().max()) < 1e-20
 
 
 @pytest.mark.cuda
@@ -317,8 +346,8 @@ def test_chol_factor_wrapper_rejects_what_it_cannot_take(cuda_device):
         chol_factor.chol_factor(A)
     with pytest.raises(TypeError):                      # not float32
         chol_factor.chol_factor(A.double().contiguous())
-    with pytest.raises(ValueError):                     # n > 64
-        chol_factor.chol_factor(torch.eye(65, device=cuda_device)[None])
+    with pytest.raises(ValueError):                     # n < 1
+        chol_factor.chol_factor(torch.ones(1, 0, 0, device=cuda_device))
     with pytest.raises(ValueError):                     # not square
         chol_factor.chol_factor(torch.ones(2, 3, 4, device=cuda_device))
     with pytest.raises(ValueError):                     # a CPU tensor
@@ -350,6 +379,47 @@ def test_face_sat_kernel_matches_plain_twin(V, F, K, cuda_device):
         for a, b in ((out[0], ref[0]), (out[2], ref[2]), (out[3], ref[3])):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
         assert bool((out[1][1] == 0).all() & (out[0][1] == 1e9).all())
+
+
+def _sat_case(case, dev):
+    c = kernel_cases.sat_case(case)
+    t = lambda x: None if x is None else torch.tensor(
+        x, dtype=torch.float32, device=dev)
+    slack = c["slack"] if isinstance(c["slack"], float) else t(c["slack"])
+    return t(c["pts"]), t(c["planes"]), t(c["mask"]), slack, c["K"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", kernel_cases.SAT_CASES)
+def test_sat_kernels_edge_cases(case, cuda_device):
+    """Both face-SAT kernels (csrc/face_sat.cuh) against their twins on the
+    edge cases of utils/kernel_cases.py: the three layouts and the tiled
+    V > 32, K = V - 1, an all-masked instance, exactly tied reference faces
+    and depths, a filter that drops every point, scalar slack, no mask.
+    Indices and the reference face identical; depth, sep and the normal or
+    plane within 1e-6 + 1e-5 relative, the band of the random cases above."""
+    pts, planes, mask, slack, K = _sat_case(case, cuda_device)
+    for lateral in (False, True):
+        before = hull_sat.LAUNCHES
+        out = hull_sat.hull_ref_face_depth(pts, planes, K, mask, lateral,
+                                           slack)
+        torch.cuda.synchronize()
+        assert hull_sat.LAUNCHES == before + 1
+        ref = hull_sat.hull_ref_face_depth_plain(pts, planes, K, mask,
+                                                 lateral, slack)
+        assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+        for a, b in ((out[0], ref[0]), (out[3], ref[3])):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    vm = torch.ones(pts.shape[:-1], device=cuda_device) if mask is None \
+        else mask
+    before = face_sat.LAUNCHES
+    out = face_sat.face_sat_depth(pts, planes, vm, K)
+    torch.cuda.synchronize()
+    assert face_sat.LAUNCHES == before + 1
+    ref = face_sat.face_sat_depth_plain(pts, planes, vm, K)
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+    for a, b in ((out[0], ref[0]), (out[3], ref[3])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from mujoco_sim_tpu.ops import linalg as jlinalg
 from mujoco_sim_tpu.ops import manifold as jmanifold
 from mujoco_sim_tpu.ops.collision import _hull_ref_face_depth as jax_hrfd
 from mujoco_sim_tpu.ops.pallas_chol import chol_solve as pallas_chol_solve
@@ -263,7 +264,6 @@ def test_chol_factor_twin(n, stiff):
     L = chol_factor.chol_factor(torch.tensor(A))       # CPU: the twin
     assert L.dtype == torch.float32
     assert bool((torch.triu(L, 1) == 0).all())
-    from mujoco_sim_tpu.ops import linalg as jlinalg
     refs = {"jax linalg.cholesky": np.asarray(jlinalg.cholesky(jnp.asarray(A))),
             "pallas prototype": _pallas_chol_interpret(A)}
     scale = np.abs(refs["jax linalg.cholesky"]).max(-1, keepdims=True)
@@ -276,25 +276,50 @@ def test_chol_factor_twin(n, stiff):
     assert rel < 1e-6, rel
 
 
+@pytest.mark.parametrize("n", [65, 72])
+def test_chol_twins_above_the_size_classes(n):
+    """chol_solve's twin against the JAX package's linalg.cholesky +
+    cho_solve (its Pallas kernel in interpret mode takes ~14 s a size on
+    the CPU) at 2e-5, the band of tests/test_pallas_chol.py; chol_factor's twin
+    against the prototype's kernel body in interpret mode at 2e-6 of the
+    row's largest entry, as test_chol_factor_twin holds it."""
+    rng = np.random.default_rng(n)
+    A = kernel_cases._spd(rng, 128, n).astype(F32)
+    b = rng.standard_normal((128, n)).astype(F32)
+    x = chol.chol_solve(torch.tensor(A), torch.tensor(b)).numpy()
+    ref = np.asarray(jlinalg.cho_solve(jlinalg.cholesky(jnp.asarray(A)),
+                                       jnp.asarray(b)))
+    np.testing.assert_allclose(x, ref, rtol=2e-5, atol=2e-5)
+    L = chol_factor.chol_factor(torch.tensor(A)).numpy()
+    Lp = _pallas_chol_interpret(A)
+    scale = np.abs(Lp).max(-1, keepdims=True)
+    assert (np.abs(L - Lp) / scale).max() < 2e-6
+
+
 def _pallas_sat_interpret(pts, planes, vm, K):
     """The prototype's face-SAT kernel body on lane-last blocks of 128
-    instances, in interpret mode."""
+    instances, in interpret mode (N padded to 128 with copies of the last
+    instance, the padding dropped from the result)."""
     N, V, _ = pts.shape
     F_ = planes.shape[1]
-    assert N == 128
+    pad = (-N) % 128
+    if pad:
+        edge = lambda x: np.concatenate([x, np.repeat(x[-1:], pad, 0)], 0)
+        pts, planes, vm = edge(pts), edge(planes), edge(vm)
+    Np = N + pad
     kernel = _proto("pallas_sat_proto").make_kernel(V, F_, K)
     f32 = jnp.float32
     dep, idx, plane, sep = pl.pallas_call(
         kernel,
-        out_shape=(jax.ShapeDtypeStruct((K, N), f32),
-                   jax.ShapeDtypeStruct((K, N), jnp.int32),
-                   jax.ShapeDtypeStruct((4, N), f32),
-                   jax.ShapeDtypeStruct((1, N), f32)),
+        out_shape=(jax.ShapeDtypeStruct((K, Np), f32),
+                   jax.ShapeDtypeStruct((K, Np), jnp.int32),
+                   jax.ShapeDtypeStruct((4, Np), f32),
+                   jax.ShapeDtypeStruct((1, Np), f32)),
         interpret=True)(jnp.transpose(jnp.asarray(pts), (1, 2, 0)),
                         jnp.transpose(jnp.asarray(planes), (1, 2, 0)),
                         jnp.transpose(jnp.asarray(vm), (1, 0)))
-    return (np.asarray(dep).T, np.asarray(idx).T, np.asarray(plane).T,
-            np.asarray(sep)[0])
+    return (np.asarray(dep).T[:N], np.asarray(idx).T[:N],
+            np.asarray(plane).T[:N], np.asarray(sep)[0, :N])
 
 
 @pytest.mark.parametrize("case", ["random", "tie", "all_masked", "k4"])
@@ -330,6 +355,44 @@ def test_face_sat_depth_twin(case):
                                atol=1e-6)
     np.testing.assert_allclose(out[2].numpy()[:, :3], jn, rtol=0, atol=1e-6)
     np.testing.assert_allclose(out[3].numpy(), js, rtol=0, atol=1e-6)
+
+
+def _sat_case_f32(case):
+    c = kernel_cases.sat_case(case)
+    f = lambda x: None if x is None else x.astype(F32)
+    slack = c["slack"] if isinstance(c["slack"], float) else f(c["slack"])
+    return f(c["pts"]), f(c["planes"]), f(c["mask"]), slack, c["K"]
+
+
+@pytest.mark.parametrize("case", kernel_cases.SAT_CASES)
+def test_hull_ref_face_depth_twin_edge_cases(case):
+    """The face-SAT edge cases of utils/kernel_cases.py (the layouts of
+    csrc/face_sat.cuh, K = V - 1, an all-masked instance, tied reference
+    faces and depths, a filter that drops every point, scalar slack and no
+    mask): the twin against the JAX function and the Pallas kernel in
+    interpret mode, values to 1e-6, indices equal.  With the lateral filter
+    (the unfiltered query is its first half); the unmasked cases, which are
+    the box-mesh call's form, also without it."""
+    pts, planes, vm, slack, K = _sat_case_f32(case)
+    for lateral in ((False, True) if vm is None else (True,)):
+        _sat_check(pts, planes, vm, k=K, lateral=lateral, slack=slack)
+
+
+@pytest.mark.parametrize("case", kernel_cases.SAT_CASES)
+def test_face_sat_depth_twin_edge_cases(case):
+    """The same cases through face_sat_depth (a missing mask is all ones)
+    against the prototype's kernel body in interpret mode: indices equal,
+    values to 1e-6."""
+    pts, planes, vm, _, K = _sat_case_f32(case)
+    if vm is None:
+        vm = np.ones(pts.shape[:2], F32)
+    out = face_sat.face_sat_depth(torch.tensor(pts), torch.tensor(planes),
+                                  torch.tensor(vm), K)
+    dep, idx, plane, sep = _pallas_sat_interpret(pts, planes, vm, K)
+    np.testing.assert_array_equal(out[1].numpy(), idx)
+    np.testing.assert_allclose(out[0].numpy(), dep, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out[2].numpy(), plane, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out[3].numpy(), sep, rtol=1e-6, atol=1e-6)
 
 
 def test_prototype_wrappers_reject_other_devices():
