@@ -5,9 +5,11 @@ Drives the port's main paths (mujoco_sim_tpu_torch: load_model -> put_model
 primitive-geom box scene at 4096 envs (Euler, then short RK4 and implicit
 rollouts), a pile of 11 free boxes (nv = 66, above the Cholesky kernels'
 register classes) at 1024 envs, the contact-rich manipulation scene (an
-arm stirring six convex meshes in a bin) at 1024 envs, and the same scene
+arm stirring six convex meshes in a bin) at 1024 envs, the same scene
 as a precise-contact, sensed step (elliptic cone, noslip, 31 sensor
-values) at 1024 envs.  Builds
+values) at 1024 envs, and the same scene with two objects replaced by
+pebbles of 256 and 320 hull vertices (exact-manifold tables of (V, E, F)
+= (320, 954, 636)) at 1024 envs.  Builds
 the six hand-written kernels from the checkout's own sources, holds each
 against its plain PyTorch twin, and checks the results.  Run from the root
 of a checkout, with one card:
@@ -21,7 +23,8 @@ record (JSON); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 ``python3 chip_smoke.py build kernels`` runs only the named phases (of
-env, build, kernels, box, pile, manip, precise) and prints no final record:
+env, build, kernels, box, pile, manip, precise, bighull) and prints no
+final record:
 a quick check of the kernels alone.
 """
 
@@ -44,6 +47,7 @@ STACK = os.path.join(ROOT, "tests", "fixtures", "stack.xml")
 MANIP = os.path.join(ROOT, "tests", "fixtures", "manip_bin6.xml")
 PRECISE = os.path.join(ROOT, "tests", "fixtures", "manip_bin6_precise.xml")
 PILE = os.path.join(ROOT, "tests", "fixtures", "box_pile11.xml")
+BIGHULL = os.path.join(ROOT, "tests", "fixtures", "manip_bin6_bighull.xml")
 NENV = 4096
 MANIP_NENV = 1024
 # chol_solve vs plain twin: |x_kernel - x_plain| <= ATOL + RTOL |x_plain|
@@ -83,11 +87,24 @@ MANIP_CROSS_POS_TOL = 2e-2
 # cone box.  Its objects are held to the same 2 cm; the fraction of qpos
 # entries inside the 2.5e-3 band must be 85% (measured 91% on the card).
 PRECISE_CROSS_FRACTION = 0.85
+# the bighull scene's 320-vertex pebble is nearly round: it rests and rolls
+# on one of many near-tied low vertices, so its orientation (and that of
+# the rock it pushes) follows the last bit of the contact picks.  Its
+# objects are held to the same 2 cm; the fraction of qpos entries inside
+# the 2.5e-3 band must be 85%, as for the precise scene.  f32 alone does
+# this, with no card and no kernel: the twins in f32 on the CPU read 89.6%
+# against f64 on the same rollout, out of band in the same two bodies'
+# quaternions (scripts/torch_f32_drift.py); the card read 91.0%.
+# bighull_cross_check prints the fractions body by body.
+BIGHULL_CROSS_FRACTION = 0.85
 # precise step, first step, f32 card vs f64 CPU: each sensor value within
 # SENSOR_RTOL of the f64 value, relative to the larger of 1 and the
 # largest magnitude within that sensor's own reading (a 3-vector whose one
 # component passes through zero is held to the vector's scale)
 SENSOR_RTOL = 1e-3
+# the twins materialise an (instances, axes, vertices) product: they run
+# over slices of the instances that keep it near 2^28 floats (1 GiB)
+PLAIN_SLICE_ELEMS = 1 << 28
 # published peaks of one H100 SXM: device memory rate and f32 (non tensor
 # core) rate, for the least time a kernel's work could take
 HBM_BYTES_PER_S = 3.35e12
@@ -485,14 +502,29 @@ def compare_hull_sat(pts, planes, K, mask, lateral, slack, what):
     return err, ties
 
 
+def _plain_sliced(fn, args, per_instance):
+    """fn(*args) over slices of the leading axis, each slice's product at
+    most PLAIN_SLICE_ELEMS floats (``per_instance`` an instance; args[0]
+    is (lead..., rows, 3)); the results concatenated."""
+    N = args[0].shape[0]
+    unit = args[0][0].shape[:-2].numel() * max(per_instance, 1)
+    step = max(1, PLAIN_SLICE_ELEMS // unit)
+    outs = [fn(*(a[i:i + step] for a in args)) for i in range(0, N, step)]
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
 def compare_support(axes, w, what):
+    """Kernel vs twin, bit for bit: both round every multiply and add (the
+    kernel is built with -fmad=false), min and max are exact."""
     from mujoco_sim_tpu_torch.ops import support_minmax as smm
     mn, mx = smm.support_minmax_cuda(axes, w)
     torch.cuda.synchronize()
-    mnT, mxT = smm.support_minmax_plain(axes, w)
-    if not bool((_close(mn, mnT) & _close(mx, mxT)).all()):
-        raise AssertionError(f"support_minmax {what}: disagrees with the "
-                             f"twin, max abs err {_max_err(mn, mnT)}")
+    mnT, mxT = _plain_sliced(smm.support_minmax_plain, (axes, w),
+                             axes.shape[-2] * w.shape[-2])
+    if not (torch.equal(mn, mnT) and torch.equal(mx, mxT)):
+        raise AssertionError(f"support_minmax {what}: differs from the "
+                             f"twin, max abs err {_max_err(mn, mnT)}, "
+                             f"{_max_err(mx, mxT)}")
     return max(_max_err(mn, mnT), _max_err(mx, mxT))
 
 
@@ -503,15 +535,23 @@ _MTV_ORDER = ("wA", "wB", "heA", "heB", "hmA", "hmB", "nfA", "nfB", "fmA",
 def compare_mtv(b, what, lanes=None):
     """mtv_query kernel and mtv_staged (support_minmax inside) vs the twin.
     ``lanes`` (bool) restricts the comparison (captured disabled slots hold
-    empty tables).  Returns {name: (max abs depth err, axis ties + lanes
-    outside the tight band)}."""
+    empty tables).  A lane with no valid axis (the twin's depth is +inf:
+    an empty deep slot) must equal the twin bit for bit: the kernel
+    returns it without scanning.  Returns {name: (max abs depth err, axis
+    ties + lanes outside the tight band)}."""
     from mujoco_sim_tpu_torch.ops import manifold, mtv_query
     args = [b[k] for k in _MTV_ORDER]
     dep, n = mtv_query.mtv_query_cuda(*args)
     torch.cuda.synchronize()
-    depT, nT = mtv_query.mtv_query_plain(*args)
+    V, F = b["wA"].shape[-2], b["nfA"].shape[-2]
+    depT, nT = _plain_sliced(mtv_query.mtv_query_plain, args, 2 * F * V)
     depS, nS = manifold.mtv_staged(*args)
     torch.cuda.synchronize()
+    none = torch.isinf(depT) & (depT > 0)
+    if not (torch.equal(dep[none], depT[none])
+            and torch.equal(n[none], nT[none])):
+        raise AssertionError(f"mtv_query {what}: a lane with no valid axis "
+                             "differs from the twin's")
     sel = torch.ones_like(dep, dtype=torch.bool) if lanes is None else lanes
     out = {}
     for name, d_, n_ in (("mtv_query", dep, n), ("mtv_staged", depS, nS)):
@@ -638,17 +678,47 @@ def kernels_vs_plain():
                 failures.append(str(exc))
     # the edge ranking's corner cases and the cylinder support on either
     # side (utils/kernel_cases.py), held to the same bands; their near-ties
-    # are counted apart from those of the random inputs above
+    # are counted apart from those of the random inputs above.  Then the
+    # same cases with the compaction's empty slots (every third lane all
+    # zero) and lanes with every face and one hull's edges masked, and the
+    # tables compiled from full hulls of 256 and 1200 vertices (vertices
+    # staged whole / in tiles) at N = 130 and 8192
     edge_ties = dict(mtv_query=0, mtv_staged=0)
-    for name in kernel_cases.MTV_CASES:
-        b = {k: _cuda(v) for k, v in kernel_cases.mtv_case(name).items()}
+    mtv_cases = [(f"case {name}", kernel_cases.mtv_case(name))
+                 for name in kernel_cases.MTV_CASES]
+    for name in ("duplicates", "cyl_both"):
+        c = kernel_cases.mtv_case(name)
+        for v in c.values():
+            v[::3] = 0.0
+        c["fmA"][1::3] = c["fmB"][1::3] = c["hmB"][1::3] = 0.0
+        mtv_cases.append((f"case {name} with empty slots", c))
+    for name in kernel_cases.MTV_BIG_CASES:
+        for N in (130, 8192):
+            mtv_cases.append((f"case {name} N={N}",
+                              kernel_cases.mtv_big_case(name, N)))
+    for what, c in mtv_cases:
+        b = {k: _cuda(v) for k, v in c.items()}
         ncase += 1
         try:
-            for kname, (e, t) in compare_mtv(b, f"case {name}").items():
+            for kname, (e, t) in compare_mtv(b, what).items():
                 err["mtv_query"] = max(err["mtv_query"], e)
                 edge_ties[kname] += t
         except AssertionError as exc:
             failures.append(str(exc))
+    # support_minmax at one width, the step's two, a chunked one, against
+    # clouds of one stage, several tiles and past the old cap of 4096
+    for V in (24, 256, 5000):
+        for N in (130, 8192):
+            w = _cuda(rng.normal(size=(N, V, 3)))
+            for C in (1, 68, 256, 1016):
+                ncase += 1
+                axes = _cuda(rng.normal(size=(N, C, 3)))
+                try:
+                    err["support_minmax"] = max(
+                        err["support_minmax"],
+                        compare_support(axes, w, f"C={C} V={V} N={N}"))
+                except AssertionError as exc:
+                    failures.append(str(exc))
     if failures:
         raise AssertionError("kernels disagree with their twins:\n"
                              + "\n".join(failures))
@@ -656,7 +726,8 @@ def kernels_vs_plain():
           accepted_near_ties=ties, edge_case_near_ties=edge_ties,
           tolerance=f"atol {HATOL} + rtol {HRTOL} (MTV depth: atol "
                     f"{MTV_ATOL}); indices equal except at ties of the twin "
-                    "within that band")
+                    "within that band; support_minmax and MTV lanes with no "
+                    "valid axis bit for bit")
     return err
 
 
@@ -1110,19 +1181,12 @@ def manip_kernels(probe):
     args = [b[k_] for k_ in _MTV_ORDER]
     N = b["wA"].shape[:-2].numel()
     V, E, F = b["wA"].shape[-2], b["heA"].shape[-3], b["nfA"].shape[-2]
-    K, R_ = mtv_query.K_EDGE, mtv_query.REFINE_ROUNDS
-    # the work these inputs need: a round that does not improve the depth
+    K = mtv_query.K_EDGE
+    # the work these inputs need: a lane with no valid axis (an empty deep
+    # slot) ends before its scans, a round that does not improve the depth
     # ends its instance, so round r + 1 runs where round r improved
-    depths = [mtv_query.mtv_query_cuda(*args, rounds=r)[0]
-              for r in range(R_)]
-    round_lanes, going = [], torch.ones_like(depths[0], dtype=torch.bool)
-    for r in range(R_):
-        round_lanes.append(int(going.sum()))
-        if r + 1 < R_:
-            going = going & (depths[r + 1] < depths[r])
-    bound, by = _bound(4 * N * (6 * V + 14 * E + 8 * F + 30) + 16 * N,
-                       N * 2 * F * 2 * V * 5
-                       + sum(round_lanes) * (K * K * 2 * V * 5 + 2 * E * 12))
+    round_lanes = _mtv_lanes_in_round(args)
+    bound, by = _bound(*_mtv_work(b, round_lanes))
     timing["mtv_query"] = dict(
         N=N, V=V, E=E, F=F, live_lanes=int(enabled.sum()),
         lanes_in_round=round_lanes,
@@ -1163,29 +1227,164 @@ def manip_kernels(probe):
     return err, timing
 
 
-def manip_cross_check(m):
+def cross_drift(m, path, n=16, nsteps=50):
+    """qpos of the model m against the same scene in f64 on the CPU after
+    nsteps stirred steps from the fixture's initial state, n envs: |dq|
+    per entry, the fraction inside MANIP_CROSS_TOL, the largest deviation
+    of an object's position, the fraction body by body (position and
+    quaternion entries of the six objects) and the largest |dqvel|."""
     import mujoco_sim_tpu_torch as mst
-    n, nsteps = 16, 50
-    m64 = mst.put_model(mst.load_model(MANIP), torch.float64, "cpu")
+    m64 = mst.put_model(mst.load_model(path), torch.float64, "cpu")
     outs = []
     for mm_ in (m, m64):
         d = mst.rollout(mm_, mst.make_data(mm_, n), nsteps,
                         ctrl_fn=_stir(n, mm_.nu, mm_.device, mm_.dtype))
         outs.append((d.qpos.double().cpu(), d.qvel.double().cpu()))
     dq = (outs[0][0] - outs[1][0]).abs()
-    within = float((dq <= MANIP_CROSS_TOL).double().mean())
+    ok = dq <= MANIP_CROSS_TOL
+    within = float(ok.double().mean())
     dpos = float(torch.stack([dq[:, 6 + 7 * i:9 + 7 * i]
                               for i in range(6)]).max())
+    per_body = {name: dict(
+        position=float(ok[:, 6 + 7 * i:9 + 7 * i].double().mean()),
+        quaternion=float(ok[:, 9 + 7 * i:13 + 7 * i].double().mean()))
+        for i, name in enumerate(("t1", "t2", "r1", "r2", "c1", "c2"))}
+    return dict(nenv=n, steps=nsteps, max_dev_qpos=float(dq.max()),
+                median_dev_qpos=float(dq.median()),
+                fraction_within_band=within,
+                fraction_within_band_by_body=per_body,
+                max_dev_object_position=dpos,
+                max_dev_qvel=float((outs[0][1] - outs[1][1]).abs().max()))
+
+
+def manip_cross_check(m):
+    r = cross_drift(m, MANIP)
+    within, dpos = r["fraction_within_band"], r["max_dev_object_position"]
     if within < MANIP_CROSS_FRACTION or not dpos <= MANIP_CROSS_POS_TOL:
         raise AssertionError(
             f"manip card f32 vs CPU f64: {within:.3f} of qpos within "
             f"{MANIP_CROSS_TOL}, objects off by up to {dpos} m")
-    phase("manip_cross_check", scene="manip_bin6.xml", nenv=n, steps=nsteps,
-          max_dev_qpos=float(dq.max()), median_dev_qpos=float(dq.median()),
-          fraction_within_band=within, band=MANIP_CROSS_TOL,
+    phase("manip_cross_check", scene="manip_bin6.xml", band=MANIP_CROSS_TOL,
           required_fraction=MANIP_CROSS_FRACTION,
-          max_dev_object_position=dpos, object_band=MANIP_CROSS_POS_TOL,
-          max_dev_qvel=float((outs[0][1] - outs[1][1]).abs().max()))
+          object_band=MANIP_CROSS_POS_TOL, **r)
+
+
+# --------------------------------------------------------- bighull main path
+
+def _mtv_work(b, going):
+    """(bytes, flops) the exact query must move and do on these inputs: a
+    lane with no valid axis needs both hulls' face masks and one hull's
+    edge masks to show it, A's first face normal and its result; a live
+    lane reads every table once, scans 2F face axes against 2V vertices,
+    and K^2 cross axes and 2E edge scores in every round it runs
+    (``going``: live lanes a round, from the kernel itself)."""
+    from mujoco_sim_tpu_torch.ops import mtv_query
+    N = b["wA"].shape[:-2].numel()
+    V, E, F = b["wA"].shape[-2], b["heA"].shape[-3], b["nfA"].shape[-2]
+    K = mtv_query.K_EDGE
+    live = int(going[0])
+    nbytes = (live * 4 * (6 * V + 14 * E + 8 * F + 30)
+              + (N - live) * 4 * (2 * F + E + 3) + 16 * N)
+    flops = live * 2 * F * 2 * V * 5 + sum(going) * (K * K * 2 * V * 5
+                                                     + 2 * E * 12)
+    return nbytes, flops
+
+
+def _mtv_lanes_in_round(args):
+    """Lanes each round of the exact query runs on these inputs: round 0 on
+    every lane with a valid axis, round r + 1 where round r improved."""
+    from mujoco_sim_tpu_torch.ops import mtv_query
+    R_ = mtv_query.REFINE_ROUNDS
+    depths = [mtv_query.mtv_query_cuda(*args, rounds=r)[0]
+              for r in range(R_ + 1)]
+    going = torch.isfinite(depths[0])
+    lanes = []
+    for r in range(R_):
+        lanes.append(int(going.sum()))
+        going = going & (depths[r + 1] < depths[r])
+    return lanes
+
+
+def bighull_main_path(card):
+    """manip_bin6_bighull @1024: the manip scene with two pebbles of 256 and
+    320 hull vertices, so every step's exact query takes full-hull tables
+    of (V, E, F) = (320, 954, 636), which the kernel refused before it took
+    tables of any size.  20 warm-up steps, then 100 stirred steps with the
+    launch counts set to 0 just before and read just after."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.ops import mtv_query
+    m = mst.put_model(mst.load_model(BIGHULL))   # float32, on the card
+    V, E, F = (m.mesh_vert_hi.shape[1], m.mesh_hedge.shape[1],
+               m.mesh_fplane.shape[1])
+    Ep = (E + 3) & ~3
+    if 8 * V + 2 * Ep + 14 * E + 8 * F + 30 + 6 * 16 <= 47 * 1024 // 4:
+        raise AssertionError(f"bighull tables ({V}, {E}, {F}) fit the old "
+                             "shared-memory line")
+    d0 = mst.make_data(m, MANIP_NENV)
+    stir = _stir(MANIP_NENV, m.nu, m.device, m.dtype)
+    nwarm, nsteps = 20, 100
+    dw = mst.rollout(m, d0, nwarm, ctrl_fn=stir)
+    torch.cuda.synchronize()
+    _reset_counts()
+    final = []
+    with _Probe(capture_calls=(25, 50, 75, 100)) as probe:
+        times = _timed_rollouts(
+            lambda: final.append(mst.rollout(m, dw, nsteps, ctrl_fn=stir)), 1)
+    counts = _counts()
+    d = final[0]
+    ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "bighull")
+    if counts["mtv_query"] != nsteps:
+        raise AssertionError(f"bighull: mtv_query ran {counts['mtv_query']} "
+                             f"times in {nsteps} steps (one per step)")
+    # the query at the step's own inputs: against its twin (every live
+    # lane), then timed at the capture with the most live deep slots
+    err, ties, live = 0.0, 0, 0
+    for b, enabled in probe.mtv:
+        res = compare_mtv(b, "bighull capture", lanes=enabled)["mtv_query"]
+        err, ties = max(err, res[0]), ties + res[1]
+        live += int(enabled.sum())
+    b, enabled = max(probe.mtv, key=lambda be: int(be[1].sum()))
+    args = [b[k] for k in _MTV_ORDER]
+    going = _mtv_lanes_in_round(args)
+    bound, by = _bound(*_mtv_work(b, going))
+    timing = dict(
+        N=b["wA"].shape[:-2].numel(), V=V, E=E, F=F,
+        live_lanes=int(enabled.sum()), lanes_in_round=going,
+        ms=_median_ms(lambda: mtv_query.mtv_query_cuda(*args)),
+        device_ms=_graph_ms(lambda: mtv_query.mtv_query_cuda(*args)),
+        plain_ms=_median_ms(lambda: mtv_query.mtv_query_plain(*args)),
+        bound_ms=bound, bound_by=by)
+    phase("bighull_main_path", scene="manip_bin6_bighull.xml",
+          tables=dict(V=V, E=E, F=F), nenv=MANIP_NENV, steps=nsteps,
+          timed=f"1 rollout of {nsteps} steps after a {nwarm}-step warm-up",
+          launches=counts,
+          launches_per_step={k: v / nsteps for k, v in counts.items()},
+          finite=True, objects_in_bin=True,
+          object_z_range=[float(pos[..., 2].min()), float(pos[..., 2].max())],
+          ncon_max_seen=ncon_max, ncon_budget=m.ncon_max,
+          deep_slots_enabled=int(probe.enabled),
+          deep_slots_per_step=int(probe.enabled) / nsteps,
+          captured_mtv_calls=len(probe.mtv), live_deep_slots_checked=live,
+          mtv_query_vs_twin=dict(max_abs_err=err, near_ties=ties),
+          mtv_query_timing=timing, rollout_s=times,
+          ms_per_step=min(times) / nsteps * 1e3,
+          env_steps_per_s=MANIP_NENV * nsteps / min(times), card=card)
+    return m, counts, timing
+
+
+def bighull_cross_check(m):
+    """f32 card vs f64 CPU on manip_bin6_bighull, 50 stirred steps from
+    the fixture's initial state: objects within the manip band's 2 cm, 85%
+    of qpos within 2.5e-3 (BIGHULL_CROSS_FRACTION)."""
+    r = cross_drift(m, BIGHULL)
+    within, dpos = r["fraction_within_band"], r["max_dev_object_position"]
+    if within < BIGHULL_CROSS_FRACTION or not dpos <= MANIP_CROSS_POS_TOL:
+        raise AssertionError(
+            f"bighull card f32 vs CPU f64: {within:.3f} of qpos within "
+            f"{MANIP_CROSS_TOL}, objects off by up to {dpos} m")
+    phase("bighull_cross_check", scene="manip_bin6_bighull.xml",
+          band=MANIP_CROSS_TOL, required_fraction=BIGHULL_CROSS_FRACTION,
+          object_band=MANIP_CROSS_POS_TOL, **r)
 
 
 # --------------------------------------------------------- precise main path
@@ -1374,6 +1573,9 @@ def main(argv):
     if want("precise"):
         mp_, pcounts, fact_step_t = precise_main_path(card)
         precise_cross_check(mp_)
+    if want("bighull"):
+        mb_, bcounts, big_t = bighull_main_path(card)
+        bighull_cross_check(mb_)
     phase("total", seconds=time.perf_counter() - t_start)
     if only:
         return
@@ -1413,10 +1615,12 @@ def main(argv):
              launches=counts["mtv_query"],
              launches_precise_path=pcounts["mtv_query"],
              max_abs_err=worst["mtv_query"],
+             launches_bighull_path=bcounts["mtv_query"],
              ms=t["mtv_query"]["ms"], device_ms=t["mtv_query"]["device_ms"],
              plain_ms=t["mtv_query"]["plain_ms"],
              bound_ms=t["mtv_query"]["bound_ms"],
-             bound_by=t["mtv_query"]["bound_by"], library_ms=None),
+             bound_by=t["mtv_query"]["bound_by"], library_ms=None,
+             bighull=big_t),
         dict(name="support_minmax", route="cuda",
              source=src + "support_minmax.cu",
              replaces="mujoco_sim_tpu/ops/pallas_support.py:39",

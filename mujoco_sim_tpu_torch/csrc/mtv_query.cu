@@ -58,6 +58,38 @@
 //    memory and no block-wide state per instance keep 16-20 warps resident
 //    per SM.  More residency does not help: the SM's issue slots are full.
 //
+// Tables of any size.  The layout above stages every table of an instance
+// in shared memory, 8 V + ~16 E + 8 F floats a warp, which holds up to
+// ~160 vertices a hull in the 47 KB a block gets without an opt-in.  The
+// compiler builds the exact-manifold tables from the full hulls, padded to
+// the model's largest (V, E, F = 320, 954, 636 for two 256- and 320-vertex
+// pebbles, 92 KB), so a second instantiation (Big) takes every table that
+// does not fit:
+//  * only the hot tables stay in shared memory: both hulls' vertices as
+//    float4 (every axis of every pass scans them) and the selected
+//    directions; the edge, edge-mask, face and face-mask tables are read
+//    once an axis or once an edge a pass, straight from device memory;
+//  * hulls of more than kTileV vertices are scanned tile by tile through a
+//    kTileV-vertex buffer a hull (support_scan_tiled in support.cuh, on
+//    the staging and scan support_minmax uses), so the shared memory of a
+//    warp stays below ~57 KB whatever V (the opt-in attribute is set above
+//    48 KB a block);
+//  * the K nearest edges come from K passes of a warp-wide minimum over
+//    the (score, index) keys above the last one taken, the scores
+//    recomputed each pass: O(K E / 32) a lane where the ranking is
+//    O(E^2 / 32) (E = 954: 16 x 30 scores against 954 x 30 compares), the
+//    same total order, hence the same picks;
+//  * a lane with no valid face on either hull and no valid edge on one of
+//    them (the compaction's empty deep slots, most of the 8192) returns
+//    (inf, A's first face normal) before it stages anything: the result
+//    the scan would reach, since every axis is invalid and no round can
+//    find a valid cross axis (both paths do this).
+// Big would give the same bits on small tables too, but at the manip
+// step's (V, E, F) = (24, 56, 34) it takes about twice the staged layout's
+// device time on an NVIDIA H100 80GB HBM3 at 700 W (device-memory tables,
+// K dependent passes: scripts/torch_mtv_regimes.py), so tables that fit
+// keep the staged layout.
+//
 // Built with -fmad=false (see support.cuh): every pick is a float
 // comparison.  Loaded with ctypes by ops/mtv_query.py.
 #include <climits>
@@ -73,9 +105,11 @@ constexpr int kMaxWarps = 4;             // instances per block, at most
 constexpr int kAxes = 4;                 // axes a lane scans per vertex load
 constexpr int kRankEdges = 2;            // edges a lane ranks per sweep
 constexpr int kSmemBudget = 47 * 1024;   // per block, no opt-in attribute
+constexpr int kTileV = 1024;             // Big: vertices a hull's buffer holds
 
 struct Hull {
-  const float4* w;   // V world vertices (x, y, z, unused)
+  float4* w;         // V world vertices (x, y, z, unused), or a tile of tv
+  const float* wg;   // V * 3 world vertices in device memory
   const float* he;   // E * 6 local edge endpoints
   const float* hm;   // E edge mask
   const float* nf;   // F * 3 world face normals
@@ -86,24 +120,34 @@ struct Hull {
   float* dir;        // K * 3 selected world edge directions
 };
 
-// Floats of shared memory per instance (a multiple of 4).
+// Floats of shared memory per instance (a multiple of 4): every table
+// staged.
 __host__ __device__ inline int warp_floats(int V, int E, int F, int K) {
   const int Ep = (E + 3) & ~3;
   return (8 * V + 2 * Ep + 14 * E + 8 * F + 30 + 6 * K + 3) & ~3;
 }
 
-// (min, max) of the hull along kAxes unit axes.
+// The same for Big: two vertex buffers of tv, the poses, the directions.
+__host__ __device__ inline int big_warp_floats(int tv, int K) {
+  return (8 * tv + 6 * K + 30 + 3) & ~3;
+}
+
+// (min, max) of the hull along kAxes unit axes.  tv >= V: the vertices are
+// staged whole; else they are scanned in tiles of tv (Big).
 __device__ __forceinline__ void hull_extents(
-    const Hull& h, int V, const float (&ux)[kAxes], const float (&uy)[kAxes],
-    const float (&uz)[kAxes], float (&mn)[kAxes], float (&mx)[kAxes]) {
+    const Hull& h, int V, int tv, int lane, const float (&ux)[kAxes],
+    const float (&uy)[kAxes], const float (&uz)[kAxes], float (&mn)[kAxes],
+    float (&mx)[kAxes]) {
   if (h.cyl[0] > 0.5f) {  // uniform over the warp
     const float aw[3] = {h.R[2], h.R[5], h.R[8]};
 #pragma unroll
     for (int t = 0; t < kAxes; ++t)
       cyl_extent(ux[t], uy[t], uz[t], aw, h.p, h.cyl[1], h.cyl[2], mn[t],
                  mx[t]);
-  } else {
+  } else if (tv >= V) {
     support_scan_block<kAxes>(h.w, V, ux, uy, uz, mn, mx);
+  } else {
+    support_scan_tiled<kAxes>(h.w, tv, h.wg, V, lane, ux, uy, uz, mn, mx);
   }
 }
 
@@ -117,12 +161,13 @@ struct Best {
 // Scan kAxes axes of this lane (index c[t], < 0: no axis) and fold them
 // into its best: the smaller gap, then the lower axis index.
 __device__ __forceinline__ void consider(
-    Best& b, const Hull& A, const Hull& B, int V, const int (&c)[kAxes],
-    const float (&ux)[kAxes], const float (&uy)[kAxes],
-    const float (&uz)[kAxes], const bool (&valid)[kAxes]) {
+    Best& b, const Hull& A, const Hull& B, int V, int tv, int lane,
+    const int (&c)[kAxes], const float (&ux)[kAxes],
+    const float (&uy)[kAxes], const float (&uz)[kAxes],
+    const bool (&valid)[kAxes]) {
   float mnA[kAxes], mxA[kAxes], mnB[kAxes], mxB[kAxes];
-  hull_extents(A, V, ux, uy, uz, mnA, mxA);
-  hull_extents(B, V, ux, uy, uz, mnB, mxB);
+  hull_extents(A, V, tv, lane, ux, uy, uz, mnA, mxA);
+  hull_extents(B, V, tv, lane, ux, uy, uz, mnB, mxB);
 #pragma unroll
   for (int t = 0; t < kAxes; ++t) {
     if (c[t] < 0) continue;
@@ -164,48 +209,87 @@ __device__ __forceinline__ unsigned long long edge_key(float score, int e) {
          static_cast<unsigned>(e);
 }
 
-// The K edges of hull h nearest its support plane along n (sign > 0: the
-// hull supports at its max, else at its min), as world directions in
-// h.dir, nearest first.  keys: Ep entries of scratch, 16-byte aligned.
-__device__ __forceinline__ void select_edges(const Hull& h,
-                                             unsigned long long* keys, int V,
-                                             int E, int K, float n0, float n1,
-                                             float n2, float sign, int lane) {
-  // support extent of the hull along n
-  float s;
+// Support plane offset of hull h along n: its max (sign > 0) or min of
+// n . vertex, or the cylinder's analytic extent.  tv >= V: from the staged
+// vertices; else from the rows in device memory.
+__device__ __forceinline__ float support_plane(const Hull& h, int V, int tv,
+                                               float n0, float n1, float n2,
+                                               float sign, int lane) {
   if (h.cyl[0] > 0.5f) {
     const float aw[3] = {h.R[2], h.R[5], h.R[8]};
     float mn, mx;
     cyl_extent(n0, n1, n2, aw, h.p, h.cyl[1], h.cyl[2], mn, mx);
-    s = sign > 0.0f ? mx : mn;
-  } else {
-    float loc = sign > 0.0f ? -INFINITY : INFINITY;
-    for (int v = lane; v < V; v += kWarp) {
+    return sign > 0.0f ? mx : mn;
+  }
+  float loc = sign > 0.0f ? -INFINITY : INFINITY;
+  for (int v = lane; v < V; v += kWarp) {
+    float pr;
+    if (tv >= V) {
       const float4 q = h.w[v];
-      const float pr = dot3(n0, n1, n2, q.x, q.y, q.z);
-      loc = sign > 0.0f ? fmaxf(loc, pr) : fminf(loc, pr);
+      pr = dot3(n0, n1, n2, q.x, q.y, q.z);
+    } else {
+      const float* q = h.wg + 3 * v;
+      pr = dot3(n0, n1, n2, q[0], q[1], q[2]);
     }
-    s = sign > 0.0f ? warp_max(loc) : warp_min(loc);
+    loc = sign > 0.0f ? fmaxf(loc, pr) : fminf(loc, pr);
   }
-  // score in the local frame: nloc = R^T n, pe = he . nloc + p . n
+  return sign > 0.0f ? warp_max(loc) : warp_min(loc);
+}
+
+// What scores an edge against the support plane s along n, in the hull's
+// local frame: nloc = R^T n, pe = he . nloc + p . n.
+struct EdgeScore {
+  float l0, l1, l2, pn, s, sign;
+  __device__ __forceinline__ EdgeScore(const Hull& h, float n0, float n1,
+                                       float n2, float s_, float sign_) {
+    const float* R = h.R;
+    l0 = R[0] * n0 + R[3] * n1 + R[6] * n2;
+    l1 = R[1] * n0 + R[4] * n1 + R[7] * n2;
+    l2 = R[2] * n0 + R[5] * n1 + R[8] * n2;
+    pn = dot3(h.p[0], h.p[1], h.p[2], n0, n1, n2);
+    s = s_;
+    sign = sign_;
+  }
+  // the farther endpoint's distance behind the plane; +inf for a masked
+  // edge
+  __device__ __forceinline__ float operator()(const Hull& h, int e) const {
+    if (!(h.hm[e] > 0.5f)) return INFINITY;
+    const float* q = h.he + 6 * e;
+    const float pe0 = dot3(q[0], q[1], q[2], l0, l1, l2) + pn;
+    const float pe1 = dot3(q[3], q[4], q[5], l0, l1, l2) + pn;
+    const float d0 = sign > 0.0f ? s - pe0 : pe0 - s;
+    const float d1 = sign > 0.0f ? s - pe1 : pe1 - s;
+    return fmaxf(d0, d1);
+  }
+};
+
+// World direction of edge e (local endpoints rotated by R).
+__device__ __forceinline__ void edge_dir(const Hull& h, int e, float* out) {
   const float* R = h.R;
-  const float l0 = R[0] * n0 + R[3] * n1 + R[6] * n2;
-  const float l1 = R[1] * n0 + R[4] * n1 + R[7] * n2;
-  const float l2 = R[2] * n0 + R[5] * n1 + R[8] * n2;
-  const float pn = dot3(h.p[0], h.p[1], h.p[2], n0, n1, n2);
+  const float* q = h.he + 6 * e;
+  const float x = q[3] - q[0], y = q[4] - q[1], z = q[5] - q[2];
+  out[0] = R[0] * x + R[1] * y + R[2] * z;
+  out[1] = R[3] * x + R[4] * y + R[5] * z;
+  out[2] = R[6] * x + R[7] * y + R[8] * z;
+}
+
+// A key's score is finite: its high word lies below that of +inf.
+__device__ __forceinline__ bool finite_key(unsigned long long key) {
+  return (key >> 32) < 0xff800000ull;
+}
+
+// The K edges of hull h nearest its support plane along n (sign > 0: the
+// hull supports at its max, else at its min), as world directions in
+// h.dir, nearest first, by ranking: an edge's rank is the number of keys
+// below its own.  keys: Ep entries of scratch, 16-byte aligned.
+__device__ __forceinline__ void select_edges_rank(
+    const Hull& h, unsigned long long* keys, int V, int E, int K, float n0,
+    float n1, float n2, float sign, int lane) {
+  const EdgeScore score(h, n0, n1, n2,
+                        support_plane(h, V, V, n0, n1, n2, sign, lane), sign);
   const int Ep = (E + 3) & ~3;
-  for (int e = lane; e < Ep; e += kWarp) {
-    float sc = INFINITY;  // a masked edge; a pad ranks after every edge
-    if (e < E && h.hm[e] > 0.5f) {
-      const float* q = h.he + 6 * e;
-      const float pe0 = dot3(q[0], q[1], q[2], l0, l1, l2) + pn;
-      const float pe1 = dot3(q[3], q[4], q[5], l0, l1, l2) + pn;
-      const float d0 = sign > 0.0f ? s - pe0 : pe0 - s;
-      const float d1 = sign > 0.0f ? s - pe1 : pe1 - s;
-      sc = fmaxf(d0, d1);
-    }
-    keys[e] = edge_key(sc, e);
-  }
+  for (int e = lane; e < Ep; e += kWarp)  // a pad ranks after every edge
+    keys[e] = edge_key(e < E ? score(h, e) : INFINITY, e);
   // a slot no edge claims (K - E.. of a small hull) stays zero
   for (int k = lane; k < 3 * K; k += kWarp) h.dir[k] = 0.0f;
   __syncwarp();
@@ -230,24 +314,78 @@ __device__ __forceinline__ void select_edges(const Hull& h,
 #pragma unroll
     for (int t = 0; t < kRankEdges; ++t) {
       if (mine[t] < E && rank[t] < K) {
-        float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f;
-        // a finite score: the key's high word lies below that of +inf
-        if ((key[t] >> 32) < 0xff800000ull) {
-          const float* q = h.he + 6 * mine[t];
-          const float x = q[3] - q[0], y = q[4] - q[1], z = q[5] - q[2];
-          d0 = R[0] * x + R[1] * y + R[2] * z;
-          d1 = R[3] * x + R[4] * y + R[5] * z;
-          d2 = R[6] * x + R[7] * y + R[8] * z;
-        }
-        h.dir[3 * rank[t]] = d0;
-        h.dir[3 * rank[t] + 1] = d1;
-        h.dir[3 * rank[t] + 2] = d2;
+        float d[3] = {0.0f, 0.0f, 0.0f};
+        if (finite_key(key[t])) edge_dir(h, mine[t], d);
+        h.dir[3 * rank[t]] = d[0];
+        h.dir[3 * rank[t] + 1] = d[1];
+        h.dir[3 * rank[t] + 2] = d[2];
       }
     }
   }
   __syncwarp();
 }
 
+__device__ __forceinline__ unsigned long long warp_min_u64(
+    unsigned long long v) {
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(kFull, v, off);
+    v = o < v ? o : v;
+  }
+  return v;
+}
+
+// The same selection for tables of any size (Big): pass r takes the
+// smallest key above pass r - 1's, one warp-wide minimum a pass over
+// scores recomputed from the tables in device memory.  The first key with
+// no finite score ends it: that slot and every later one stay zero, as
+// the ranking leaves them.
+__device__ __forceinline__ void select_edges_passes(const Hull& h, int V,
+                                                    int tv, int E, int K,
+                                                    float n0, float n1,
+                                                    float n2, float sign,
+                                                    int lane) {
+  const EdgeScore score(h, n0, n1, n2,
+                        support_plane(h, V, tv, n0, n1, n2, sign, lane), sign);
+  for (int k = lane; k < 3 * K; k += kWarp) h.dir[k] = 0.0f;
+  __syncwarp();
+  const int kk = K < E ? K : E;
+  unsigned long long last = 0;
+  for (int r = 0; r < kk; ++r) {
+    unsigned long long best = ~0ull;
+    for (int e = lane; e < E; e += kWarp) {
+      const unsigned long long key = edge_key(score(h, e), e);
+      if ((r == 0 || key > last) && key < best) best = key;
+    }
+    best = warp_min_u64(best);
+    if (!finite_key(best)) break;  // uniform over the warp
+    last = best;
+    if (lane == 0) edge_dir(h, static_cast<int>(best & 0xffffffffu),
+                            h.dir + 3 * r);
+  }
+  __syncwarp();
+}
+
+// A lane whose faces are all masked on both hulls and whose edges are all
+// masked on one of them (an empty deep slot: every table zero) has no valid
+// axis at all: the coarse pick is the first axis, A's first face normal, at
+// depth +inf, and no round finds a valid cross axis (one hull's directions
+// are all zero).  True for every lane of the warp or for none.
+__device__ __forceinline__ bool no_valid_axis(
+    const float* fmA, const float* fmB, const float* hmA, const float* hmB,
+    int E, int F, int lane) {
+  bool face = false;
+  for (int f = lane; f < F; f += kWarp)
+    face |= (fmA[f] > 0.5f) | (fmB[f] > 0.5f);
+  if (__any_sync(kFull, face)) return false;
+  bool edgeA = false, edgeB = false;
+  for (int e = lane; e < E; e += kWarp) {
+    edgeA |= hmA[e] > 0.5f;
+    edgeB |= hmB[e] > 0.5f;
+  }
+  return !__any_sync(kFull, edgeA) || !__any_sync(kFull, edgeB);
+}
+
+template <bool kBig>
 __global__ void __launch_bounds__(kMaxWarps* kWarp) mtv_query_kernel(
     const float* __restrict__ wA, const float* __restrict__ wB,
     const float* __restrict__ heA, const float* __restrict__ heB,
@@ -258,7 +396,7 @@ __global__ void __launch_bounds__(kMaxWarps* kWarp) mtv_query_kernel(
     const float* __restrict__ pA, const float* __restrict__ pB,
     const float* __restrict__ cylA, const float* __restrict__ cylB,
     float* __restrict__ depth_out, float* __restrict__ n_out, int N, int V,
-    int E, int F, int K, int rounds, unsigned kmagic) {
+    int E, int F, int K, int rounds, int tv, unsigned kmagic) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -266,16 +404,25 @@ __global__ void __launch_bounds__(kMaxWarps* kWarp) mtv_query_kernel(
       static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) + warp;
   if (inst >= N) return;  // whole warp leaves together; no block barrier
 
+  if (no_valid_axis(fmA + inst * F, fmB + inst * F, hmA + inst * E,
+                    hmB + inst * E, E, F, lane)) {
+    if (lane == 0) depth_out[inst] = INFINITY;
+    if (lane < 3) n_out[inst * 3 + lane] = nfA[inst * 3 * F + lane];
+    return;
+  }
+
   // carve this warp's shared memory and stage both hulls: every copy is in
   // flight before the one wait
-  float* ptr = smem + warp * warp_floats(V, E, F, K);
+  float* ptr = smem + warp * (kBig ? big_warp_floats(tv, K)
+                                   : warp_floats(V, E, F, K));
+  Hull A, B;
+  A.wg = wA + inst * 3 * V;
+  B.wg = wB + inst * 3 * V;
   auto stage_verts = [&](const float* src) {
-    float* dst = ptr;
-    ptr += 4 * V;
-    const float* g = src + inst * 3 * V;
-    for (int t = lane; t < 3 * V; t += kWarp)
-      asynccopy::copy_f32(dst + 4 * (t / 3) + t % 3, g + t);
-    return reinterpret_cast<const float4*>(dst);
+    float4* dst = reinterpret_cast<float4*>(ptr);
+    ptr += 4 * tv;
+    if (tv >= V) stage_rows_f4(dst, src, V, lane, kWarp);
+    return dst;
   };
   auto stage = [&](const float* src, int count) {
     float* dst = ptr;
@@ -283,20 +430,32 @@ __global__ void __launch_bounds__(kMaxWarps* kWarp) mtv_query_kernel(
     asynccopy::copy_warp(dst, src + inst * count, count, lane);
     return dst;
   };
-  Hull A, B;
-  A.w = stage_verts(wA);
-  B.w = stage_verts(wB);
-  // the ranking's keys: 16-byte aligned (8 V floats in), 8 bytes an edge
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(ptr);
-  ptr += 2 * ((E + 3) & ~3);
-  A.he = stage(heA, 6 * E);
-  B.he = stage(heB, 6 * E);
-  A.hm = stage(hmA, E);
-  B.hm = stage(hmB, E);
-  A.nf = stage(nfA, 3 * F);
-  B.nf = stage(nfB, 3 * F);
-  A.fm = stage(fmA, F);
-  B.fm = stage(fmB, F);
+  A.w = stage_verts(A.wg);
+  B.w = stage_verts(B.wg);
+  unsigned long long* keys = nullptr;
+  if (kBig) {
+    // the cold tables stay in device memory
+    A.he = heA + inst * 6 * E;
+    B.he = heB + inst * 6 * E;
+    A.hm = hmA + inst * E;
+    B.hm = hmB + inst * E;
+    A.nf = nfA + inst * 3 * F;
+    B.nf = nfB + inst * 3 * F;
+    A.fm = fmA + inst * F;
+    B.fm = fmB + inst * F;
+  } else {
+    // the ranking's keys: 16-byte aligned (8 V floats in), 8 bytes an edge
+    keys = reinterpret_cast<unsigned long long*>(ptr);
+    ptr += 2 * ((E + 3) & ~3);
+    A.he = stage(heA, 6 * E);
+    B.he = stage(heB, 6 * E);
+    A.hm = stage(hmA, E);
+    B.hm = stage(hmB, E);
+    A.nf = stage(nfA, 3 * F);
+    B.nf = stage(nfB, 3 * F);
+    A.fm = stage(fmA, F);
+    B.fm = stage(fmB, F);
+  }
   A.R = stage(RA, 9);
   B.R = stage(RB, 9);
   A.p = stage(pA, 3);
@@ -335,7 +494,7 @@ __global__ void __launch_bounds__(kMaxWarps* kWarp) mtv_query_kernel(
           c[t] = -1;
         }
       }
-      consider(b, A, B, V, c, ux, uy, uz, valid);
+      consider(b, A, B, V, tv, lane, c, ux, uy, uz, valid);
     }
     pick(b, cur_d, cur_x, cur_y, cur_z);
   }
@@ -343,8 +502,13 @@ __global__ void __launch_bounds__(kMaxWarps* kWarp) mtv_query_kernel(
   // ---- refinement rounds
   for (int r = 0; r < rounds; ++r) {
     __syncwarp();  // the last round's reads of dir are done
-    select_edges(A, keys, V, E, K, cur_x, cur_y, cur_z, 1.0f, lane);
-    select_edges(B, keys, V, E, K, cur_x, cur_y, cur_z, -1.0f, lane);
+    if (kBig) {
+      select_edges_passes(A, V, tv, E, K, cur_x, cur_y, cur_z, 1.0f, lane);
+      select_edges_passes(B, V, tv, E, K, cur_x, cur_y, cur_z, -1.0f, lane);
+    } else {
+      select_edges_rank(A, keys, V, E, K, cur_x, cur_y, cur_z, 1.0f, lane);
+      select_edges_rank(B, keys, V, E, K, cur_x, cur_y, cur_z, -1.0f, lane);
+    }
     Best b;
     for (int c0 = 0; c0 < K * K; c0 += kWarp * kAxes) {
       int c[kAxes];
@@ -372,7 +536,7 @@ __global__ void __launch_bounds__(kMaxWarps* kWarp) mtv_query_kernel(
           c[t] = -1;
         }
       }
-      consider(b, A, B, V, c, ux, uy, uz, valid);
+      consider(b, A, B, V, tv, lane, c, ux, uy, uz, valid);
     }
     float d, nx, ny, nz;
     pick(b, d, nx, ny, nz);
@@ -397,9 +561,10 @@ __global__ void __launch_bounds__(kMaxWarps* kWarp) mtv_query_kernel(
 // Per instance: wA/wB (V, 3), heA/heB (E, 2, 3), hmA/hmB (E,), nfA/nfB
 // (F, 3), fmA/fmB (F,), RA/RB (3, 3), pA/pB (3,), cylA/cylB (3,) -> depth
 // (), n (3,); every array contiguous float32 on the device with a leading
-// instance axis N.  Returns the cudaError_t of the launch (0 =
-// cudaSuccess); 1 for sizes the kernel does not take (the tables of one
-// instance must fit 47 KB of shared memory).
+// instance axis N.  Any table size: one instance's tables in the 47 KB of
+// shared memory a block gets without an opt-in take the all-staged kernel,
+// larger ones the Big kernel.  Returns the cudaError_t of the launch (0 =
+// cudaSuccess); 1 for K outside 1..1024, negative rounds or empty tables.
 extern "C" int mtv_query_f32(const float* wA, const float* wB,
                              const float* heA, const float* heB,
                              const float* hmA, const float* hmB,
@@ -412,15 +577,27 @@ extern "C" int mtv_query_f32(const float* wA, const float* wB,
                              void* stream) {
   if (N < 0 || V < 1 || E < 1 || F < 1 || K < 1 || K > 1024 || rounds < 0)
     return 1;
-  const size_t per_warp = warp_floats(V, E, F, K) * sizeof(float);
-  if (per_warp > kSmemBudget) return 1;
   if (N == 0) return 0;
+  const bool big = warp_floats(V, E, F, K) * sizeof(float) > kSmemBudget;
+  const int tv = big && V > kTileV ? kTileV : V;
+  const size_t per_warp =
+      (big ? big_warp_floats(tv, K) : warp_floats(V, E, F, K)) *
+      sizeof(float);
   int warps = static_cast<int>(kSmemBudget / per_warp);
   if (warps > kMaxWarps) warps = kMaxWarps;
-  mtv_query_kernel<<<(N + warps - 1) / warps, warps * kWarp, warps * per_warp,
-                     static_cast<cudaStream_t>(stream)>>>(
+  if (warps < 1) warps = 1;
+  const size_t smem = warps * per_warp;
+  const auto kernel = big ? mtv_query_kernel<true> : mtv_query_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<(N + warps - 1) / warps, warps * kWarp, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB, RA, RB, pA, pB, cylA,
-      cylB, depth, n, N, V, E, F, K, rounds,
+      cylB, depth, n, N, V, E, F, K, rounds, tv,
       // ceil(2^32 / K): __umulhi(c, kmagic) == c / K for every c < K * K
       K == 1 ? 0u : 0xffffffffu / static_cast<unsigned>(K) + 1u);
   return static_cast<int>(cudaGetLastError());

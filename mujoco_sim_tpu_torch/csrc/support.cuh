@@ -1,13 +1,17 @@
 // Shared device helpers of the convex-hull collision kernels (sm_90a):
-// the support scan of one unit axis over a vertex cloud held in shared
-// memory, the analytic cylinder support, and warp reductions on
-// (value, index) pairs whose ties go to the lowest index.
+// the support scan of unit axes over a vertex cloud held in shared memory
+// (T axes a lane per 16-byte broadcast load, over the whole cloud or tile
+// by tile), the staging of 12-byte vertex rows into 16-byte slots, the
+// analytic cylinder support, and warp reductions on (value, index) pairs
+// whose ties go to the lowest index.
 //
 // All arithmetic is written as separate multiplies and adds in the order of
 // the plain PyTorch twins ((x*a + y*b) + z*c); the sources that include this
 // header are built with -fmad=false so nvcc does not contract them.
 #pragma once
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 namespace hullk {
 
@@ -19,36 +23,33 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
   return ax * bx + ay * by + az * bz;
 }
 
-// (min, max) over the V vertices w[v*3 + c] (shared memory) of axis . vertex.
-// Unmasked: the hull tables pad by repeating a real vertex, so a pad never
-// moves either extreme.
-__device__ __forceinline__ void support_scan(const float* __restrict__ w,
-                                             int V, float ax, float ay,
-                                             float az, float& mn, float& mx) {
-  float lo = INFINITY, hi = -INFINITY;
-  for (int v = 0; v < V; ++v) {
-    const float p = dot3(ax, ay, az, w[3 * v], w[3 * v + 1], w[3 * v + 2]);
-    lo = fminf(lo, p);
-    hi = fmaxf(hi, p);
+// Issue the copies of n vertex rows (x, y, z: 12 bytes each, contiguous in
+// device memory) into 16-byte slots (x, y, z, unused) of shared memory,
+// split over the `lanes` threads of a team (this one has rank `rank`):
+// one 4-byte cp.async a float, in flight until the caller waits.
+__device__ __forceinline__ void stage_rows_f4(float4* dst,
+                                              const float* __restrict__ src,
+                                              int n, int rank, int lanes) {
+  float* d = reinterpret_cast<float*>(dst);
+  for (int t = rank; t < 3 * n; t += lanes) {
+    const int v = t / 3;  // a constant divisor: multiply-high, no division
+    asynccopy::copy_f32(d + 4 * v + (t - 3 * v), src + t);
   }
-  mn = lo;
-  mx = hi;
 }
 
-// The same scan for T axes at once over vertices stored as float4
-// (x, y, z, unused): one 16-byte broadcast load a vertex serves all T axes,
-// and each axis-vertex product keeps the order of support_scan.
+// Fold n vertices stored as float4 (x, y, z, unused) into the running
+// (min, max) of T axes: one 16-byte broadcast load a vertex serves all T
+// axes, and each axis-vertex product keeps the twins' order.  Called once
+// over a whole cloud or once a tile: min and max do not depend on the
+// order in which the vertices come.  Unmasked: the hull tables pad by
+// repeating a real vertex, so a pad never moves either extreme.
 template <int T>
-__device__ __forceinline__ void support_scan_block(
-    const float4* __restrict__ w, int V, const float (&ax)[T],
+__device__ __forceinline__ void support_scan_acc(
+    const float4* __restrict__ w, int n, const float (&ax)[T],
     const float (&ay)[T], const float (&az)[T], float (&mn)[T],
     float (&mx)[T]) {
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    mn[t] = INFINITY;
-    mx[t] = -INFINITY;
-  }
-  for (int v = 0; v < V; ++v) {
+#pragma unroll 2
+  for (int v = 0; v < n; ++v) {
     const float4 q = w[v];
 #pragma unroll
     for (int t = 0; t < T; ++t) {
@@ -56,6 +57,44 @@ __device__ __forceinline__ void support_scan_block(
       mn[t] = fminf(mn[t], p);
       mx[t] = fmaxf(mx[t], p);
     }
+  }
+}
+
+template <int T>
+__device__ __forceinline__ void scan_init(float (&mn)[T], float (&mx)[T]) {
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    mn[t] = INFINITY;
+    mx[t] = -INFINITY;
+  }
+}
+
+// (min, max) over the V vertices (float4, shared memory) of T axes.
+template <int T>
+__device__ __forceinline__ void support_scan_block(
+    const float4* __restrict__ w, int V, const float (&ax)[T],
+    const float (&ay)[T], const float (&az)[T], float (&mn)[T],
+    float (&mx)[T]) {
+  scan_init(mn, mx);
+  support_scan_acc<T>(w, V, ax, ay, az, mn, mx);
+}
+
+// The same over V vertex rows in device memory that do not fit shared
+// memory: a warp stages them tile by tile (tv rows at a time) into `tile`
+// and folds each in.  Every lane of the warp calls it with its own axes.
+template <int T>
+__device__ __forceinline__ void support_scan_tiled(
+    float4* tile, int tv, const float* __restrict__ rows, int V, int lane,
+    const float (&ax)[T], const float (&ay)[T], const float (&az)[T],
+    float (&mn)[T], float (&mx)[T]) {
+  scan_init(mn, mx);
+  for (int v0 = 0; v0 < V; v0 += tv) {
+    const int n = min(tv, V - v0);
+    __syncwarp();  // every lane is done with the last tile
+    stage_rows_f4(tile, rows + 3ll * v0, n, lane, kWarp);
+    asynccopy::wait_all();
+    __syncwarp();
+    support_scan_acc<T>(tile, n, ax, ay, az, mn, mx);
   }
 }
 

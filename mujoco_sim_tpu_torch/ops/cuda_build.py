@@ -120,6 +120,31 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(BUILD_INFO[name]["path"])
 
 
+def build_variant(name: str, tag: str, edits) -> ctypes.CDLL:
+    """A copy of kernel ``name``'s source with ``edits`` applied (pairs of
+    (text, replacement); each text must occur), built with the kernel's
+    own flags into ``_build/{name}_{tag}.so`` and loaded.  For measurement
+    scripts that time or stamp a variant of the shipped kernel; the
+    caller sets argtypes."""
+    src_file, flags = KERNELS[name]
+    with open(os.path.join(CSRC_DIR, src_file)) as f:
+        src = f.read()
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"{src_file} changed: {old!r} not found")
+        src = src.replace(old, new)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = os.path.join(BUILD_DIR, f"{name}_{tag}.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    so = cu[:-3] + ".so"
+    proc = subprocess.run([nvcc(), *_BASE_FLAGS, *flags, "-I", CSRC_DIR,
+                           "-o", so, cu], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stderr}")
+    return ctypes.CDLL(so)
+
+
 def launch(dev, cfn, *args) -> int:
     """Call the kernel's C entry ``cfn(*args, stream)`` on PyTorch's current
     stream of ``dev`` and return its cudaError_t.  A kernel launches on the

@@ -20,9 +20,10 @@ hull takes its exact analytic support: axis = R[:, 2], centre = p).
 ``mtv_query`` picks its path from the tensor's device: a CUDA tensor
 launches csrc/mtv_query.cu (built by ops/cuda_build.py at first use; one
 warp per instance, four axes scanned per vertex load, the K nearest edges
-found by one parallel ranking in the twin's (score, index) order) or
-raises; a CPU tensor takes the plain twin.  ``LAUNCHES`` counts kernel
-launches and nothing else.
+taken in the twin's (score, index) order; tables of any size: those that
+do not fit shared memory are read from device memory, the vertices tile
+by tile) or raises; a CPU tensor takes the plain twin.  ``LAUNCHES``
+counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -39,14 +40,6 @@ LAUNCHES = 0
 SOURCE = cuda_build.source_path("mtv_query")
 K_EDGE = 16         # refinement edges per hull per round
 REFINE_ROUNDS = 2
-_SMEM_FLOATS = 47 * 1024 // 4
-
-
-def smem_floats(V, E, F, K):
-    """Floats of shared memory the kernel needs per instance (one warp):
-    vertices as float4, the ranking's 8-byte keys, the edge, face and pose
-    tables, the selected directions (csrc/mtv_query.cu ``warp_floats``)."""
-    return (8 * V + 2 * ((E + 3) & ~3) + 14 * E + 8 * F + 30 + 6 * K + 3) & ~3
 
 
 def cyl_ext(axes, aw, r, hh):
@@ -212,9 +205,6 @@ def mtv_query_cuda(wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB,
     K, rounds = int(K), int(rounds)
     if not 1 <= K <= 1024 or rounds < 0:
         raise ValueError(f"{fn}: K={K}, rounds={rounds}")
-    if smem_floats(V, E, F, K) > _SMEM_FLOATS:
-        raise ValueError(f"{fn}: V={V}, E={E}, F={F}, K={K} exceed the "
-                         "kernel's shared memory")
     depth = torch.empty(lead, dtype=torch.float32, device=dev)
     n = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
     rc = cuda_build.launch(

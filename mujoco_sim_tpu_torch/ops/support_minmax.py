@@ -7,9 +7,11 @@ instance.  Reductions are UNMASKED: the hull tables pad by repeating a
 real vertex, so pads never win.
 
 ``support_minmax`` picks its path from the tensor's device: a CUDA tensor
-launches csrc/support_minmax.cu (built by ops/cuda_build.py at first use)
-or raises; a CPU tensor takes the plain twin.  ``LAUNCHES`` counts kernel
-launches and nothing else.
+launches csrc/support_minmax.cu (built by ops/cuda_build.py at first use;
+a persistent grid of warps, teams of 8 lanes x 9 axes an instance up to
+C = 72 and a warp of 32 lanes x 8 axes beyond, vertices staged as float4
+and double-buffered, any V) or raises; a CPU tensor takes the plain twin.
+``LAUNCHES`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ from mujoco_sim_tpu_torch.ops import cuda_build
 
 LAUNCHES = 0
 SOURCE = cuda_build.source_path("support_minmax")
-MAX_V = 48 * 1024 // 12
 
 
 def support_minmax_plain(axes: torch.Tensor, w: torch.Tensor):
@@ -40,7 +41,8 @@ def _load() -> ctypes.CDLL:
     lib = cuda_build.load("support_minmax")
     lib.support_minmax_f32.restype = ctypes.c_int
     lib.support_minmax_f32.argtypes = ([ctypes.c_void_p] * 4
-                                       + [ctypes.c_int] * 3
+                                       + [ctypes.c_longlong]
+                                       + [ctypes.c_int] * 2
                                        + [ctypes.c_void_p])
     return lib
 
@@ -56,9 +58,8 @@ def support_minmax_cuda(axes: torch.Tensor, w: torch.Tensor):
         raise ValueError(f"{fn}: shapes {tuple(axes.shape)} / "
                          f"{tuple(w.shape)}")
     C, V = axes.shape[-2], w.shape[-2]
-    if C < 1 or not 1 <= V <= MAX_V:
-        raise ValueError(f"{fn}: C={C}, V={V} outside C >= 1, 1 <= V <= "
-                         f"{MAX_V}")
+    if C < 1 or V < 1:
+        raise ValueError(f"{fn}: C={C}, V={V}: both must be >= 1")
     dev = cuda_build.check_f32_cuda(fn, axes=axes, w=w)
     N = 1
     for s in lead:

@@ -8,8 +8,12 @@ The cases pin what the kernels' designs lean on: the size classes of the
 register-resident Cholesky (8, 16, 32, 48, 64: both sides of every edge),
 batches that fill no warp evenly, a stiff row, a pivot at the 1e-30 floor;
 for the MTV query the edge ranking's corner cases (fewer edges than K, a
-hull with every edge masked, exactly tied scores) and the analytic
-cylinder support on either side; for the face-SAT queries (hull_sat and
+hull with every edge masked, exactly tied scores), the analytic
+cylinder support on either side, and tables as large as the compiler
+builds from full hulls (the 256-vertex pebble of
+tests/fixtures/manip_bin6_bighull.xml, and a 1200-vertex one whose
+vertices the kernel scans tile by tile), with the compaction's empty
+slots; for the face-SAT queries (hull_sat and
 face_sat) the layouts of csrc/face_sat.cuh (V <= 8, <= 32 and the tiled
 V > 32; F past a multiple of the face groups), K = V - 1, an instance with
 every point masked, exactly tied reference faces and depths, a lateral
@@ -20,6 +24,8 @@ Everything is float64 numpy; callers cast.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -142,6 +148,83 @@ def mtv_case(name: str, seed: int = 0):
 
     A = hull(name == "masked_A", name in ("cyl_A", "cyl_both"))
     B = hull(name == "masked_B", name in ("cyl_B", "cyl_both"))
+    out = {k + "A": v for k, v in A.items()}
+    out.update({k + "B": v for k, v in B.items()})
+    return out
+
+
+# MTV tables compiled from the full hull of a Fibonacci ellipsoid of n
+# vertices (the recipe of tests/fixtures/manip_bin6_bighull.xml): (V, E, F)
+# = (256, 762, 508) and (1200, 3594, 2396), over the 47 KB of shared memory
+# a block has without an opt-in (8 V + ~16 E + 8 F floats a pair), the
+# second also over the 227 KB a block can opt into
+MTV_BIG_CASES = ("pebble256", "pebble1200")
+_PEBBLES = {"pebble256": 256, "pebble1200": 1200}
+PEBBLE_AXES = (0.034, 0.030, 0.024)
+
+
+def fibonacci_ellipsoid(n: int, a: float, b: float, c: float) -> np.ndarray:
+    """n Fibonacci points on the ellipsoid of semi-axes (a, b, c), (n, 3)."""
+    i = np.arange(n) + 0.5
+    z = 1.0 - 2.0 * i / n
+    r = np.sqrt(1.0 - z * z)
+    phi = np.pi * (3.0 - np.sqrt(5.0)) * np.arange(n)
+    return np.stack([a * r * np.cos(phi), b * r * np.sin(phi), c * z], 1)
+
+
+@functools.lru_cache(maxsize=None)
+def pebble_tables(n: int):
+    """The exact-manifold tables the port's compiler builds for one mesh of
+    n Fibonacci-ellipsoid vertices (rounded to 5 decimals, as written into
+    the fixture): vert (V, 3) repeat-padded, fplane (F, 4), fmask (F,),
+    hedge (E, 2, 3), hemask (E,), all local and read-only."""
+    from mujoco_sim_tpu_torch.models import compile as mcompile
+    from mujoco_sim_tpu_torch.models import mjcf
+    v = np.round(fibonacci_ellipsoid(n, *PEBBLE_AXES), 5)
+    xml = ('<mujoco><asset><mesh name="p" vertex="'
+           + " ".join(f"{x:.5f}" for x in v.ravel())
+           + '"/></asset><worldbody><body><freejoint/>'
+           '<geom type="mesh" mesh="p"/></body></worldbody></mujoco>')
+    m = mcompile.compile_spec(mjcf.parse_mjcf_string(xml))
+    out = {k: np.array(getattr(m, src))[0] for k, src in (
+        ("vert", "mesh_vert_hi"), ("fplane", "mesh_fplane"),
+        ("fmask", "mesh_fmask"), ("hedge", "mesh_hedge"),
+        ("hemask", "mesh_hedge_mask"))}
+    for v in out.values():          # shared by every caller: read-only
+        v.setflags(write=False)
+    return out
+
+
+def mtv_big_case(name: str, N: int = 5, seed: int = 0):
+    """{tensor name: array} (the 16 of MTV_ORDER, N instances) of one of
+    MTV_BIG_CASES, laid out as the deep-pair compaction hands them to the
+    query (ops/manifold.exact_pair_contacts): two copies of the pebble at
+    random orientations, centres 0.3-1.2 of its smallest semi-axis apart
+    (deep interpenetration), world vertices and face normals, local edges.
+    Instance 2, 7, 12, ... is an empty slot (every table, pose and mask
+    zero); instance 3, 8, ... flags hull A as a cylinder (analytic
+    support)."""
+    rng = np.random.default_rng([seed, 300 + MTV_BIG_CASES.index(name)])
+    t = pebble_tables(_PEBBLES[name])
+    c = PEBBLE_AXES[2]
+    each = lambda x: np.broadcast_to(x, (N,) + x.shape).copy()
+
+    def hull(offset):
+        R = np.linalg.qr(rng.normal(size=(N, 3, 3)))[0]
+        R[:, :, 0] *= np.sign(np.linalg.det(R))[:, None]
+        d = rng.normal(size=(N, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        p = offset * d * rng.uniform(0.3, 1.2, (N, 1)) * c
+        w = p[:, None] + t["vert"][None] @ R.transpose(0, 2, 1)
+        nf = t["fplane"][None, :, :3] @ R.transpose(0, 2, 1)
+        return dict(w=w, he=each(t["hedge"]), hm=each(t["hemask"]), nf=nf,
+                    fm=each(t["fmask"]), R=R, p=p, cyl=np.zeros((N, 3)))
+
+    A, B = hull(0.5), hull(-0.5)
+    A["cyl"][3::5] = [1.0, 0.03, 0.02]
+    for h in (A, B):
+        for v in h.values():
+            v[2::5] = 0.0
     out = {k + "A": v for k, v in A.items()}
     out.update({k + "B": v for k, v in B.items()})
     return out

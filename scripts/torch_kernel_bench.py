@@ -14,7 +14,8 @@ It imports the package through its public wrappers only (the
 ``mtv_query.py``, ``hull_sat.py``, ``face_sat.py`` and
 ``support_minmax.py``), so it runs unchanged against any commit that has
 them.  A shape a commit's wrapper refuses (``chol_solve`` at n > 64 before
-the large-n path existed) is reported as ``{"refused": <message>}``.  It
+the large-n path existed, ``mtv_query`` on tables over 47 KB before it
+took any size) is reported as ``{"refused": <message>}``.  It
 prints one JSON object; per kernel and shape it holds
 
 * ``event_ms``: median of 20 single launches between CUDA events (the
@@ -34,12 +35,15 @@ Shapes: chol_solve at (1024, 42), (4096, 42) and (4096, 6), the manip and
 box scenes' systems, and at (1024, 66) and (256, 128), systems above the
 register-resident size classes; chol_factor at (1024, 42), (1024, 66) and
 (256, 128); mtv_query at N = 8192, V = 24, E = 56, F = 34, K = 16, 2 rounds,
-the manip step's query; hull_ref_face_depth at the manip step's two calls
+the manip step's query, at V = 256, E = 762, F = 508 (random hull pairs),
+and at the tables of tests/fixtures/manip_bin6_bighull.xml (V = 320,
+E = 954, F = 636: its two pebbles posed in deep interpenetration in every
+lane); hull_ref_face_depth at the manip step's two calls
 (mesh-mesh: N = 43 008, V = 24, F = 44, K = 2, lateral filter, slack per
 instance, masked padding vertices; box-mesh: N = 28 672, V = 8, F = 44,
 K = 2, no mask, scalar slack); face_sat_depth at N = 8192, V = 32, F = 60,
-K = 2; support_minmax at N = 8192, V = 24 and C = 68 and 256.  Inputs are
-seeded random hull pairs.
+K = 2; support_minmax at N = 8192, V = 24 and 256, C = 68 and 256.  Inputs
+are seeded random hull pairs.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ import time
 
 import numpy as np
 import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _event_ms(fn, reps=20):
@@ -211,6 +217,58 @@ def _sat_pairs(rng, N, V, F, box=False, vmin=None):
                  for x in (pts, planes, mask, 0.15 * rb))
 
 
+def _fixture_pairs(rng, N):
+    """The two pebbles of manip_bin6_bighull.xml (hulls 4 and 5 of its
+    full-hull tables, compiled by the package under test), posed as the
+    deep-pair compaction hands a live slot to the query: random
+    orientations, centres 0.3-1.2 of the smaller c semi-axis apart."""
+    import mujoco_sim_tpu_torch as mst
+    m = mst.load_model(os.path.join(ROOT, "tests", "fixtures",
+                                    "manip_bin6_bighull.xml"))
+    each = lambda x: np.broadcast_to(x, (N,) + x.shape)
+    out = {}
+    for side, hid, sgn in (("A", 4, 0.5), ("B", 5, -0.5)):
+        R = np.linalg.qr(rng.normal(size=(N, 3, 3)))[0]
+        R[:, :, 0] *= np.sign(np.linalg.det(R))[:, None]
+        d = rng.normal(size=(N, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        p = sgn * d * rng.uniform(0.3, 1.2, (N, 1)) * 0.024
+        fpl = np.asarray(m.mesh_fplane)[hid]
+        tabs = dict(
+            w=p[:, None] + np.asarray(m.mesh_vert_hi)[hid] @ R.transpose(
+                0, 2, 1),
+            he=each(np.asarray(m.mesh_hedge)[hid]),
+            hm=each(np.asarray(m.mesh_hedge_mask)[hid]),
+            nf=fpl[:, :3] @ R.transpose(0, 2, 1),
+            fm=each(np.asarray(m.mesh_fmask)[hid]), R=R, p=p,
+            cyl=np.zeros((N, 3)))
+        for k, v in tabs.items():
+            out[k + side] = torch.tensor(np.ascontiguousarray(v),
+                                         dtype=torch.float32, device="cuda")
+    order = ("wA", "wB", "heA", "heB", "hmA", "hmB", "nfA", "nfB", "fmA",
+             "fmB", "RA", "RB", "pA", "pB", "cylA", "cylB")
+    return [out[k] for k in order]
+
+
+def _mtv_entry(mtv_query, args):
+    """Time mtv_query on args, or {"refused": ...}; with the lanes round 1
+    improved, and the bound of every lane live in round 1 and those in
+    round 2."""
+    m = _measure_or_refused(lambda: mtv_query.mtv_query_cuda(*args),
+                            "mtv_query_kernel")
+    if "refused" in m:
+        return m
+    d0 = mtv_query.mtv_query_cuda(*args, rounds=0)[0]
+    d1 = mtv_query.mtv_query_cuda(*args, rounds=1)[0]
+    m["improved_by_round_1"] = int((d1 < d0).sum())
+    N, V = args[0].shape[0], args[0].shape[1]
+    E, F, K = args[2].shape[1], args[6].shape[1], 16
+    m.update(_bound(4 * N * (6 * V + 14 * E + 8 * F + 30) + 16 * N,
+                    N * 2 * F * 2 * V * 5 + (N + m["improved_by_round_1"])
+                    * (K * K * 2 * V * 5 + 2 * E * 12)))
+    return m
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_bench: no CUDA device")
@@ -254,6 +312,15 @@ def main():
     d1 = mtv_query.mtv_query_cuda(*args, rounds=1)[0]
     m["improved_by_round_1"] = int((d1 < d0).sum())
     out["mtv_query"]["N8192_V24_E56_F34_K16_r2"] = m
+    # tables over the 47 KB line: random hull pairs, the fixture's pebbles
+    big = _hull_pairs(rng, 8192, 256, 762, 508)
+    out["mtv_query"]["N8192_V256_E762_F508_K16_r2"] = _mtv_entry(mtv_query,
+                                                                 big)
+    del big
+    pebbles = _fixture_pairs(rng, 8192)
+    out["mtv_query"]["N8192_bighull_V320_E954_F636_K16_r2"] = _mtv_entry(
+        mtv_query, pebbles)
+    del pebbles
     # the manip step's two hull_ref_face_depth calls
     for name, N, V, box in (("mesh_mesh", 43008, 24, False),
                             ("box_mesh", 28672, 8, True)):
@@ -278,15 +345,18 @@ def main():
     m.update(_bound(N * (4 * (4 * V + 4 * F) + 8 * K + 20),
                     N * (6 * V * F + 6 * V)))
     out["face_sat_depth"][f"N{N}_V{V}_F{F}_K{K}"] = m
-    w = args[0]
-    N, V = w.shape[0], w.shape[1]
-    for C in (68, 256):
-        axes = torch.tensor(rng.normal(size=(N, C, 3)), dtype=torch.float32,
-                            device="cuda")
-        m = _measure(lambda: support_minmax.support_minmax_cuda(axes, w),
-                     "support_minmax_kernel")
-        m.update(_bound(4 * N * (5 * C + 3 * V), N * C * V * 5))
-        out["support_minmax"][f"N{N}_C{C}_V{V}"] = m
+    N = args[0].shape[0]
+    for V in (24, 256):
+        w = args[0] if V == 24 else torch.tensor(
+            rng.normal(size=(N, V, 3)) * 0.3, dtype=torch.float32,
+            device="cuda")
+        for C in (68, 256):
+            axes = torch.tensor(rng.normal(size=(N, C, 3)),
+                                dtype=torch.float32, device="cuda")
+            m = _measure(lambda: support_minmax.support_minmax_cuda(axes, w),
+                         "support_minmax_kernel")
+            m.update(_bound(4 * N * (5 * C + 3 * V), N * C * V * 5))
+            out["support_minmax"][f"N{N}_C{C}_V{V}"] = m
     print(json.dumps(out), flush=True)
 
 

@@ -1,10 +1,12 @@
 """Where one step of the PyTorch/CUDA port spends its time, on the card.
 
-    PYTHONPATH=. python3 scripts/torch_step_profile.py [manip|box|precise] [nenv]
+    PYTHONPATH=. python3 scripts/torch_step_profile.py [manip|box|precise|bighull] [nenv]
 
 Runs `warm` stirred steps of the scene (default manip_bin6.xml @1024,
 float32; ``precise`` is manip_bin6_precise.xml @1024: elliptic cone, noslip,
-sensors) to reach a state in contact, then measures, on that state:
+sensors; ``bighull`` is manip_bin6_bighull.xml @1024: two objects with
+256- and 320-vertex hulls) to reach a state in contact, then measures, on
+that state:
 
 * the host wall time of a plain step (median of 20, each ended by a
   synchronize);
@@ -14,7 +16,8 @@ sensors) to reach a state in contact, then measures, on that state:
   and the device's busy share against the plain step's wall time;
 * host synchronisations per step, counted from the warnings of
   torch.cuda.set_sync_debug_mode("warn");
-* launches per step of the hand-written kernels.
+* launches per step of the hand-written kernels, and their device time
+  per step and share of the step's device time.
 
 Prints one JSON object.  Needs a CUDA device; imports no jax.
 """
@@ -43,6 +46,7 @@ from mujoco_sim_tpu_torch.ops import (chol, chol_factor, collision,  # noqa: E40
 
 SCENES = {"manip": ("manip_bin6.xml", 1024, 150),
           "precise": ("manip_bin6_precise.xml", 1024, 150),
+          "bighull": ("manip_bin6_bighull.xml", 1024, 150),
           "box": ("floor_box.xml", 4096, 300)}
 
 
@@ -145,6 +149,12 @@ def main():
         key = _short(e.name)
         by_name[key] = by_name.get(key, 0.0) + e.device_time
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # each wrapper's kernels by their names' prefix (chol_solve_kernel and
+    # chol_solve_big_kernel are both chol_solve's)
+    prefix = dict(chol_solve="chol_solve_", chol_factor="chol_factor_",
+                  hull_ref_face_depth="hull_sat_", mtv_query="mtv_query_")
+    hand_ms = {k: sum(v for n, v in by_name.items() if n.startswith(
+        prefix[k])) / 1e3 / nprof for k in hand}
 
     out = dict(
         scene=xml, nenv=nenv, dtype="float32", card=card,
@@ -155,6 +165,9 @@ def main():
         device_ms_per_step=dev_ms,
         device_busy_share=dev_ms / step_ms,
         hand_written_kernel_launches_per_step=hand,
+        hand_written_kernel_device_ms_per_step=hand_ms,
+        hand_written_kernel_device_share={
+            k: v / dev_ms for k, v in hand_ms.items()},
         top_device_kernels_ms_per_step={k: v / 1e3 / nprof for k, v in top})
     print(json.dumps(out, indent=1))
 

@@ -27,7 +27,8 @@ FIXTURES = ["floor_box.xml", "stack.xml", "arm.xml", "capsule_drop.xml",
 # tables (decimated and full, merged faces, face polygons, edges) and the
 # actuator layout must cross too
 MESH_FIXTURES = ["manip_bin6.xml", "mesh_stack.xml", "cyl_stack.xml",
-                 "sphere_on_cube.xml", "box_on_cube.xml"]
+                 "sphere_on_cube.xml", "box_on_cube.xml",
+                 "manip_bin6_bighull.xml"]
 NAME_FIELDS = ("body", "joint", "geom", "site", "mesh", "sensor", "eq",
                "actuator", "tendon", "key")
 
@@ -134,3 +135,21 @@ def test_put_model_defaults_to_the_card_and_raises_without_one():
     with pytest.raises(RuntimeError, match="CUDA"):
         engine.put_model(m)
     assert engine.put_model(m, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("script, kernel, edits", [
+    ("torch_support_stamps", "support_minmax", "_STAMPS"),
+    ("torch_mtv_regimes", "mtv_query", "_ALWAYS_BIG")])
+def test_measurement_variants_still_apply(script, kernel, edits):
+    """The measurement scripts build variants of a shipped kernel (stamped,
+    or with one layout forced) by text edits of its source: every edited
+    text must still occur there, or the script stops on the card."""
+    import importlib.util
+    from mujoco_sim_tpu_torch.ops import cuda_build
+    spec = importlib.util.spec_from_file_location(
+        script, ROOT / "scripts" / f"{script}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    src = pathlib.Path(cuda_build.source_path(kernel)).read_text()
+    for old, _ in getattr(mod, edits):
+        assert old in src, old

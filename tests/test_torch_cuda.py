@@ -262,6 +262,89 @@ def test_mtv_query_kernel_edge_cases(case, cuda_device):
         assert torch.equal(dep, d0) and torch.equal(n, n0)
 
 
+def _big_case(case, N, dev):
+    b = kernel_cases.mtv_big_case(case, N)
+    return [torch.tensor(b[k], dtype=torch.float32, device=dev)
+            for k in kernel_cases.MTV_ORDER]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", kernel_cases.MTV_BIG_CASES)
+@pytest.mark.parametrize("N", [5, 130])
+def test_mtv_query_kernel_big_tables(case, N, cuda_device):
+    """Tables compiled from full hulls, over the 47 KB a block gets without
+    an opt-in (pebble256: vertices staged whole) and past 227 KB
+    (pebble1200: vertices in tiles): one launch, depth to 2e-5 of the twin,
+    axes equal but at a near-tie of the twin's, and every empty slot (every
+    fifth lane from the third) bit for bit."""
+    args = _big_case(case, N, cuda_device)
+    before = mtv_query.LAUNCHES
+    dep, n = mtv_query.mtv_query(*args)
+    torch.cuda.synchronize()
+    assert mtv_query.LAUNCHES == before + 1
+    rd, rn = mtv_query.mtv_query_plain(*args)
+    empty = torch.zeros(N, dtype=torch.bool, device=cuda_device)
+    empty[2::5] = True
+    assert torch.equal(dep[empty], rd[empty])
+    assert torch.equal(n[empty], rn[empty])
+    assert bool(torch.isfinite(dep[~empty]).all())
+    torch.testing.assert_close(dep, rd, rtol=1e-5, atol=2e-5)
+    axis_off = ((n * rn).sum(-1) < 1 - 1e-5) & ~empty
+    assert int(axis_off.sum()) <= max(1, N // 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["duplicates", "e_lt_k", "cyl_both"])
+def test_mtv_query_kernel_empty_slots(case, cuda_device):
+    """The tables a layout of PR 4 size takes, with the compaction's empty
+    slots (every third lane all zero) and lanes whose faces are all masked
+    and one hull's edges too: those return (+inf, A's first face normal)
+    without scanning, bit for bit the twin's; the rest as before."""
+    b = kernel_cases.mtv_case(case)
+    for v in b.values():
+        v[::3] = 0.0
+    b["fmA"][1::3] = b["fmB"][1::3] = b["hmB"][1::3] = 0.0
+    args = [torch.tensor(b[k], dtype=torch.float32, device=cuda_device)
+            for k in kernel_cases.MTV_ORDER]
+    dep, n = mtv_query.mtv_query(*args)
+    torch.cuda.synchronize()
+    rd, rn = mtv_query.mtv_query_plain(*args)
+    skip = torch.arange(dep.shape[0], device=cuda_device) % 3 < 2
+    assert bool(torch.isinf(rd[skip]).all())
+    assert torch.equal(dep[skip], rd[skip]) and torch.equal(n[skip],
+                                                            rn[skip])
+    torch.testing.assert_close(dep, rd, rtol=1e-5, atol=2e-5)
+    assert int((((n * rn).sum(-1) < 1 - 1e-5) & ~skip).sum()) <= 1
+
+
+# widths about the launcher's two layouts: 8-lane teams of 9 axes up to
+# C = 72, then warps of 32 lanes x 8 axes in chunks of 256 (257 and 1016:
+# two and four chunks)
+SUPPORT_WIDTHS = (1, 9, 68, 72, 73, 200, 256, 257, 1016)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [24, 256, 5000])
+def test_support_minmax_kernel_every_layout(V, cuda_device):
+    """Both layouts the launcher picks, at their edges and in chunks,
+    vertex clouds within one stage, over several tiles (256) and past the
+    old cap of 4096: the kernel equals its twin bit for bit (both round
+    every multiply and add; min and max are exact)."""
+    rng = np.random.default_rng(V)
+    N = 37 if V < 5000 else 9
+    w = torch.tensor(rng.normal(size=(N, V, 3)), dtype=torch.float32,
+                     device=cuda_device)
+    for C in SUPPORT_WIDTHS:
+        axes = torch.tensor(rng.normal(size=(N, C, 3)), dtype=torch.float32,
+                            device=cuda_device)
+        before = support_minmax.LAUNCHES
+        mn, mx = support_minmax.support_minmax(axes, w)
+        torch.cuda.synchronize()
+        assert support_minmax.LAUNCHES == before + 1
+        rn, rx = support_minmax.support_minmax_plain(axes, w)
+        assert torch.equal(mn, rn) and torch.equal(mx, rx), (C, V)
+
+
 @pytest.mark.cuda
 def test_collision_wrappers_reject_what_they_cannot_take(cuda_device):
     pts = torch.zeros(4, 8, 3, device=cuda_device)
