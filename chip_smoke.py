@@ -7,9 +7,16 @@ rollouts), a pile of 11 free boxes (nv = 66, above the Cholesky kernels'
 register classes) at 1024 envs, the contact-rich manipulation scene (an
 arm stirring six convex meshes in a bin) at 1024 envs, the same scene
 as a precise-contact, sensed step (elliptic cone, noslip, 31 sensor
-values) at 1024 envs, and the same scene with two objects replaced by
+values) at 1024 envs, the same scene with two objects replaced by
 pebbles of 256 and 320 hull vertices (exact-manifold tables of (V, E, F)
-= (320, 954, 636)) at 1024 envs.  Builds
+= (320, 954, 636)) at 1024 envs, a muscle arm on six spatial tendons and
+six loose objects on a 64 x 64 heightfield in air with wind at 1024 envs
+(tendons with wraps and a pulley, tendon limits and equality, site and
+tendon transmissions, fluid drag, tendon sensors, a heightfield ray;
+its kernels held to their twins at the inputs its step gave them, and
+the exact query driven on live lanes by a pass with the rock set into
+the cylinder), and the manipulation arm under the computed-torque controller at 1024 envs
+(step1 -> pd_accel -> apply_control -> step2).  Builds
 the six hand-written kernels from the checkout's own sources, holds each
 against its plain PyTorch twin, and checks the results.  Run from the root
 of a checkout, with one card:
@@ -23,8 +30,8 @@ record (JSON); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 ``python3 chip_smoke.py build kernels`` runs only the named phases (of
-env, build, kernels, box, pile, manip, precise, bighull) and prints no
-final record:
+env, build, kernels, box, pile, manip, precise, bighull, terrain,
+control) and prints no final record:
 a quick check of the kernels alone.
 """
 
@@ -48,6 +55,7 @@ MANIP = os.path.join(ROOT, "tests", "fixtures", "manip_bin6.xml")
 PRECISE = os.path.join(ROOT, "tests", "fixtures", "manip_bin6_precise.xml")
 PILE = os.path.join(ROOT, "tests", "fixtures", "box_pile11.xml")
 BIGHULL = os.path.join(ROOT, "tests", "fixtures", "manip_bin6_bighull.xml")
+TERRAIN = os.path.join(ROOT, "tests", "fixtures", "tendon_terrain.xml")
 NENV = 4096
 MANIP_NENV = 1024
 # chol_solve vs plain twin: |x_kernel - x_plain| <= ATOL + RTOL |x_plain|
@@ -57,6 +65,12 @@ RTOL = ATOL = 2e-5
 # kernel scales a column by 1 / sqrt(pivot), the twin divides by
 # sqrt(pivot) and sums its blocked update in another order, so the two
 # round differently by a few ulp of the largest entry of a row.
+# chol_solve on a step's captured systems (compare_chol_step): LAPACK's
+# test ratio of a solve and its threshold (xPOT02, 30 in its test input),
+# and the forward error against f64 within 4x the plain f32 twin's (as
+# accurate as the twin, but for the order of its sums)
+CHOL_BWD_RATIO = 30.0
+CHOL_FWD_FACTOR = 4.0
 # collision kernels vs plain twins: values to HATOL + HRTOL |twin|; an index
 # or axis that differs is accepted (and counted) only where the twin's own
 # candidates tie within that band
@@ -97,6 +111,15 @@ PRECISE_CROSS_FRACTION = 0.85
 # quaternions (scripts/torch_f32_drift.py); the card read 91.0%.
 # bighull_cross_check prints the fractions body by body.
 BIGHULL_CROSS_FRACTION = 0.85
+# terrain: the manip band (2.5e-3 on 95% of qpos, objects within 2 cm) over
+# 50 stirred steps from the card's state after its 220-step main path, with
+# every object on the ground.  The limited tendon may pass its range by
+# the soft limit's give: TENDON_LIMIT_SLACK (rad of summed joint angle)
+TERRAIN_CROSS_FRACTION = 0.95
+TENDON_LIMIT_SLACK = 0.1
+# control: read's effort against inverse() at the solved state, f32, each
+# env's largest difference over the larger of 1 and its largest effort
+CONTROL_EFFORT_RTOL = 1e-4
 # precise step, first step, f32 card vs f64 CPU: each sensor value within
 # SENSOR_RTOL of the f64 value, relative to the larger of 1 and the
 # largest magnitude within that sensor's own reading (a 3-vector whose one
@@ -218,12 +241,59 @@ def _cuda(x, dtype=torch.float32):
 
 # --------------------------------------------------------------- chol_solve
 
+def compare_chol_step(A, b, what):
+    """chol_solve kernel on a step's own SPD systems.  Mass and Newton
+    matrices reach condition numbers of 1e5 with |x| spread over many
+    decades inside one system, so an f32 solve's error scales with the
+    system's largest |x|, not with each entry (the elementwise band of the
+    random cases does not apply).  Held to (1) LAPACK's test of a solve,
+    ||b - A x|| / (||A|| ||x|| eps) <= CHOL_BWD_RATIO (infinity norms, eps
+    the unit roundoff), and (2) a forward error against an f64 solve, over
+    each system's largest |x|, within CHOL_FWD_FACTOR times the plain f32
+    twin's on the same systems.  Returns the measures."""
+    from mujoco_sim_tpu_torch.ops import chol
+    x = chol.chol_solve_cuda(A, b)
+    xp = chol.chol_solve_plain(A, b)
+    A64, b64 = A.double(), b.double()
+    x64 = torch.cholesky_solve(b64[..., None],
+                               torch.linalg.cholesky(A64))[..., 0]
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"chol_solve {what}: kernel output not finite")
+    eps = torch.finfo(torch.float32).eps / 2
+    tiny = torch.finfo(torch.float64).tiny
+
+    def bwd(x_):
+        r = ((A64 @ x_.double()[..., None])[..., 0] - b64).abs().amax(-1)
+        den = A64.abs().sum(-1).amax(-1) * x_.double().abs().amax(-1)
+        return float((r / (eps * den.clamp(min=tiny))).max())
+
+    scale = x64.abs().amax(-1).clamp(min=tiny)
+    fwd = float(((x.double() - x64).abs().amax(-1) / scale).max())
+    fwd_plain = float(((xp.double() - x64).abs().amax(-1) / scale).max())
+    ev = torch.linalg.eigvalsh(A64)
+    out = dict(bwd_ratio=bwd(x), bwd_ratio_plain=bwd(xp), fwd_rel=fwd,
+               fwd_rel_plain=fwd_plain,
+               max_abs_err=float((x - xp).abs().max()),
+               systems_outside_random_band=int(
+                   ((x - xp).abs() > ATOL + RTOL * xp.abs()).any(-1).sum()),
+               cond_max=float((ev[..., -1] / ev[..., 0]).max()))
+    if out["bwd_ratio"] > CHOL_BWD_RATIO:
+        raise AssertionError(f"chol_solve {what}: backward error "
+                             f"{out['bwd_ratio']} eps > {CHOL_BWD_RATIO}")
+    if fwd > CHOL_FWD_FACTOR * max(fwd_plain, eps):
+        raise AssertionError(f"chol_solve {what}: forward error {fwd} of "
+                             f"the largest |x|, plain twin {fwd_plain}")
+    return out
+
+
 def chol_vs_plain():
     from mujoco_sim_tpu_torch.ops import chol
     from mujoco_sim_tpu_torch.utils import kernel_cases
     rng = np.random.default_rng(0)
     cases = [(n, N, False) for n in (6, 12, 42, 49) for N in (130, NENV)]
     cases.append((12, 130, True))         # stiff rows, as test_pallas_chol
+    cases.append((38, MANIP_NENV, False))  # the terrain step's solves
     # both sides of every size class at a batch of 37, a stiff row at
     # n = 33, a pivot at the 1e-30 floor (utils/kernel_cases.py)
     cases += [(name, None, name == "stiff_n33")
@@ -261,8 +331,8 @@ def chol_vs_plain():
         worst_rel = max(worst_rel,
                         float(err.max() / xp.abs().max().clamp(min=1e-30)))
     timing = {}
-    for n, N in ((6, NENV), (42, NENV), (42, MANIP_NENV), (66, MANIP_NENV),
-                 (128, 256)):
+    for n, N in ((6, NENV), (38, MANIP_NENV), (42, NENV), (42, MANIP_NENV),
+                 (66, MANIP_NENV), (128, 256)):
         A = _cuda(_spd(rng, N, n))
         b = torch.randn(N, n, device="cuda")
         bound, by = _bound(N * (n * n + 2 * n) * 4,
@@ -992,28 +1062,44 @@ def _stir(nenv, nu, device, dtype, seed=1):
     return lambda d: torch.sin(4.0 * d.time[:, None] + phase_)
 
 
+def _stir_ranged(m, nenv, seed=1):
+    """The stir mapped into each actuator's ctrlrange:
+    lo + (hi - lo) (0.5 + 0.5 sin(4 time + phase)); muscles (0, 1) read
+    0.5 + 0.5 sin."""
+    sin = _stir(nenv, m.nu, m.device, m.dtype, seed)
+    cr = m.actuator_ctrlrange
+    return lambda d: cr[:, 0] + (cr[:, 1] - cr[:, 0]) * (0.5 + 0.5 * sin(d))
+
+
 class _Probe:
-    """Device-side observers of a manip rollout, hung on the module
+    """Device-side observers of a rollout, hung on the module
     attributes the step looks up at call time.  They call the real
     functions, add no host round trip, and are taken off again: how many
     deep-pair slots were enabled, the largest ncon, and copies of the
-    kernels' inputs at a few steps."""
+    kernels' inputs (the SPD solves, the face SAT, the exact query) at a
+    few steps."""
 
     def __init__(self, capture_calls=()):
-        from mujoco_sim_tpu_torch.ops import (collision, hull_sat, manifold,
-                                              mtv_query)
-        self.mods = (collision, hull_sat, manifold, mtv_query)
+        from mujoco_sim_tpu_torch.ops import (chol, collision, hull_sat,
+                                              manifold, mtv_query)
+        self.mods = (chol, collision, hull_sat, manifold, mtv_query)
         self.enabled = torch.zeros((), dtype=torch.long, device="cuda")
         self.ncon_max = torch.zeros((), dtype=torch.int32, device="cuda")
         self.capture_calls = set(capture_calls)
         self.calls = 0
-        self.sat, self.mtv = [], []
+        self.sat, self.mtv, self.chol = [], [], []
 
     def __enter__(self):
-        collision, hull_sat, manifold, mtv_query = self.mods
-        self.saved = (collision.collision, hull_sat.hull_ref_face_depth_cuda,
+        chol, collision, hull_sat, manifold, mtv_query = self.mods
+        self.saved = (chol.chol_solve, collision.collision,
+                      hull_sat.hull_ref_face_depth_cuda,
                       manifold.exact_pair_contacts)
-        real_col, real_sat, real_epc = self.saved
+        real_chol, real_col, real_sat, real_epc = self.saved
+
+        def solve(A, b):
+            if self.calls in self.capture_calls:
+                self.chol.append((A.clone(), b.clone()))
+            return real_chol(A, b)
 
         def col(m, d):
             self.calls += 1
@@ -1040,14 +1126,16 @@ class _Probe:
                 kw["mtv"] = grab
             return real_epc(*args, **kw)
 
+        chol.chol_solve = solve
         collision.collision = col
         hull_sat.hull_ref_face_depth_cuda = sat
         manifold.exact_pair_contacts = epc
         return self
 
     def __exit__(self, *exc):
-        collision, hull_sat, manifold, _ = self.mods
-        (collision.collision, hull_sat.hull_ref_face_depth_cuda,
+        chol, collision, hull_sat, manifold, _ = self.mods
+        (chol.chol_solve, collision.collision,
+         hull_sat.hull_ref_face_depth_cuda,
          manifold.exact_pair_contacts) = self.saved
 
 
@@ -1547,6 +1635,334 @@ def precise_cross_check(m):
           first_step_sensor_worst=worst_name, sensor_band=SENSOR_RTOL)
 
 
+# --------------------------------------------------------- terrain main path
+
+def _terrain_checks(m, d, probe, what):
+    """Finite leaves; objects above the ground's bottom and over its x-y
+    extent; ncon within budget; the limited tendon inside its range plus
+    the soft limit's give; rangefinder readings a distance or -1; muscle
+    activations in [0, 1]."""
+    bad = _float_leaves_finite(d)
+    if bad:
+        raise AssertionError(f"terrain {what}: non-finite leaves: {bad}")
+    lay = m.layout
+    hid = int(lay.geom_hfieldid[m.names.geom_id("ground")])
+    rx, ry, _, zbot = (float(v) for v in m.hfield_size[hid].cpu())
+    pos = torch.stack([d.qpos[:, 7 * i:7 * i + 3] for i in range(6)], 1)
+    ok = ((pos[..., 2] > -zbot) & (pos[..., 0].abs() < rx)
+          & (pos[..., 1].abs() < ry))
+    if not bool(ok.all()):
+        raise AssertionError(f"terrain {what}: {int((~ok).sum())} objects "
+                             "below the ground or off its extent")
+    ncon_max = int(probe.ncon_max)
+    if ncon_max > m.ncon_max:
+        raise AssertionError(f"terrain {what}: ncon reached {ncon_max} > "
+                             f"ncon_max {m.ncon_max}")
+    tid = m.names.tendon_id("couple")
+    lo, hi = (float(v) for v in m.ten_range[tid].cpu())
+    tl = d.ten_length[:, tid]
+    tl_range = [float(tl.min()), float(tl.max())]
+    if tl_range[0] < lo - TENDON_LIMIT_SLACK or \
+            tl_range[1] > hi + TENDON_LIMIT_SLACK:
+        raise AssertionError(f"terrain {what}: limited tendon length "
+                             f"{tl_range} outside [{lo}, {hi}] + "
+                             f"{TENDON_LIMIT_SLACK}")
+    sl = _sensor_slices(m)
+    rf = d.sensordata[:, sl["RANGEFINDER"][0][0]]
+    if not bool(((rf >= 0) | (rf == -1.0)).all()):
+        raise AssertionError(f"terrain {what}: a rangefinder reading is "
+                             "neither a distance nor -1")
+    from mujoco_sim_tpu_torch.models.model import DynType
+    mus = np.nonzero(np.asarray(lay.act_dyntype) == int(DynType.MUSCLE))[0]
+    act = d.act[:, torch.as_tensor(mus, device=d.act.device)]
+    if not bool(((act >= 0) & (act <= 1)).all()):
+        raise AssertionError(f"terrain {what}: muscle act out of [0, 1]")
+    return dict(object_z_range=[float(pos[..., 2].min()),
+                                float(pos[..., 2].max())],
+                ncon_max_seen=ncon_max, ncon_budget=m.ncon_max,
+                final_ncon_range=[int(d.ncon.min()), int(d.ncon.max())],
+                limited_tendon_range=tl_range, limited_tendon_limit=[lo, hi],
+                rangefinder_range=[float(rf.min()), float(rf.max())],
+                rangefinder_hits=int((rf >= 0).sum()),
+                muscle_act_range=[float(act.min()), float(act.max())])
+
+
+def terrain_main_path(card):
+    """tendon_terrain @1024: a 20-step warm-up, then 200 stirred steps with
+    the launch counts set to 0 just before and read just after, and the
+    kernels' inputs captured at four of them."""
+    import mujoco_sim_tpu_torch as mst
+    m = mst.put_model(mst.load_model(TERRAIN))   # float32, on the card
+    d0 = mst.make_data(m, MANIP_NENV)
+    stir = _stir_ranged(m, MANIP_NENV)
+    nwarm, nsteps = 20, 200
+    t0 = time.perf_counter()
+    dw = mst.rollout(m, d0, nwarm, ctrl_fn=stir)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    _reset_counts()
+    final = []
+    with _Probe(capture_calls=(50, 100, 150, 200)) as probe:
+        times = _timed_rollouts(
+            lambda: final.append(mst.rollout(m, dw, nsteps, ctrl_fn=stir)), 1)
+    counts = _counts()
+    d = final[0]
+    for k in ("chol_solve", "hull_ref_face_depth", "mtv_query"):
+        if counts[k] == 0:
+            raise AssertionError(f"terrain: {k} was never launched")
+    # mtv_query runs once a step on the deep-pair slots; where no pair is
+    # deep its lanes are empty slots (terrain_deep_pass drives live ones)
+    if counts["mtv_query"] != nsteps:
+        raise AssertionError(f"terrain: mtv_query ran {counts['mtv_query']} "
+                             f"times in {nsteps} steps (one per step)")
+    checks = _terrain_checks(m, d, probe, "main path")
+    if checks["final_ncon_range"][0] < 6:
+        raise AssertionError("terrain: the objects are not all on the "
+                             f"ground after {nwarm + nsteps} steps")
+    phase("terrain_main_path", scene="tendon_terrain.xml", nv=m.nv,
+          ntendon=m.ntendon, nenv=MANIP_NENV, steps=nsteps,
+          timed=f"1 rollout of {nsteps} steps after a {nwarm}-step warm-up",
+          warmup_s=warm_s, launches=counts,
+          launches_per_step={k: v / nsteps for k, v in counts.items()},
+          finite=True, deep_slots_enabled=int(probe.enabled),
+          deep_slots_per_step=int(probe.enabled) / nsteps, **checks,
+          rollout_s=times, ms_per_step=min(times) / nsteps * 1e3,
+          env_steps_per_s=MANIP_NENV * nsteps / min(times), card=card)
+    return m, counts, d, probe
+
+
+def _rock_on_cylinder(m, d, depth=0.02):
+    """d with the cylinder set upright 1 cm above where it lies and the
+    rock set into its top face, ``depth`` deep (the rock's lowest hull
+    vertex below the face), both at rest, in every env: the rock-prism
+    pair of the terrain scene beyond the deep gate (5 mm)."""
+    from mujoco_sim_tpu_torch.ops import smooth
+    qpos, qvel = d.qpos.clone(), d.qvel.clone()
+    cyl, rock = 7 * 4, 7 * 5                 # free joints of the objects
+    upright = torch.zeros(4, dtype=qpos.dtype, device=qpos.device)
+    upright[0] = 1.0
+    qpos[:, cyl + 2] += 0.01
+    qpos[:, cyl + 3:cyl + 7] = upright
+    qpos[:, rock:rock + 3] = qpos[:, cyl:cyl + 3]
+    qpos[:, rock + 3:rock + 7] = upright
+    qvel[:, 6 * 4:6 * 6] = 0.0
+    kin = smooth.kinematics(m, qpos, d.mocap_pos, d.mocap_quat)
+    gc, gr = m.names.geom_id("cylinder"), m.names.geom_id("rock")
+    hid = int(m.layout.geom_hullid[gr])
+    vz = kin["geom_xpos"][:, gr, None, 2] + torch.einsum(
+        "bj,vj->bv", kin["geom_xmat"][:, gr, 2], m.mesh_vert_hi[hid])
+    low = torch.where(m.mesh_vert_hi_mask[hid] > 0.5, vz, torch.inf).amin(-1)
+    top = kin["geom_xpos"][:, gc, 2] + m.geom_size[gc, 1]
+    qpos[:, rock:rock + 2] += (kin["geom_xpos"][:, gc, :2]
+                               - kin["geom_xpos"][:, gr, :2])
+    qpos[:, rock + 2] += top - depth - low
+    return d.replace(qpos=qpos, qvel=qvel)
+
+
+def terrain_deep_pass(m, d_end, nsteps=5):
+    """The main path's rollout has no deep pair, so its mtv_query lanes
+    are empty slots.  From its final state with the rock set 2 cm into the
+    upright cylinder's top in every env, nsteps stirred steps: every step
+    enables deep slots (the first in every env), and the exact query's
+    inputs are captured at three of them."""
+    import mujoco_sim_tpu_torch as mst
+    d0 = _rock_on_cylinder(m, d_end)
+    _reset_counts()
+    with _Probe(capture_calls=(1, 3, 5)) as probe:
+        d = mst.rollout(m, d0, nsteps, ctrl_fn=_stir_ranged(m, MANIP_NENV))
+        torch.cuda.synchronize()
+    counts = _counts()
+    bad = _float_leaves_finite(d)
+    if bad:
+        raise AssertionError(f"terrain deep pass: non-finite leaves: {bad}")
+    if counts["mtv_query"] != nsteps:
+        raise AssertionError(f"terrain deep pass: mtv_query ran "
+                             f"{counts['mtv_query']} times in {nsteps} steps")
+    live = [int(en.sum()) for _, en in probe.mtv]
+    if live[0] < MANIP_NENV or min(live) == 0:
+        raise AssertionError("terrain deep pass: the rock-prism pair was "
+                             "not deep in every env at the first step, or "
+                             f"in none at a later one (live slots {live})")
+    phase("terrain_deep_pass", start="the main path's final state, rock "
+          "2 cm into the upright cylinder's top", steps=nsteps,
+          launches=counts, deep_slots_enabled=int(probe.enabled),
+          live_slots_at_captures=live)
+    return counts, probe
+
+
+def terrain_kernels(probe, deep):
+    """The terrain step's kernels at the inputs it gave them: the SPD
+    solves and the face SAT of the main path's captured steps, the face
+    SAT and the exact query (live lanes) of the deep pass, each held to
+    its twin; the query timed at the deep pass's capture beside its twin
+    and the bound of the work these inputs need."""
+    from mujoco_sim_tpu_torch.ops import mtv_query
+    err = dict(hull_ref_face_depth=0.0, mtv_query=0.0)
+    ties = dict(hull_ref_face_depth=0, mtv_query=0, mtv_staged=0)
+    solves = {}
+    for A, b in probe.chol:
+        r = compare_chol_step(A, b, f"terrain capture {tuple(A.shape)}")
+        for k, v in r.items():
+            solves[k] = max(solves.get(k, v), v)
+    sat_shapes = set()
+    for pts, planes, k, mask, lateral, slack in probe.sat + deep.sat:
+        e, t = compare_hull_sat(pts, planes, k, mask, lateral, slack,
+                                f"terrain capture {tuple(pts.shape)}")
+        err["hull_ref_face_depth"] = max(err["hull_ref_face_depth"], e)
+        ties["hull_ref_face_depth"] += t
+        sat_shapes.add(tuple(pts.shape))
+    live = 0
+    for b, enabled in deep.mtv:
+        for name, (e, t) in compare_mtv(b, "terrain deep capture",
+                                        lanes=enabled).items():
+            if name == "mtv_query":
+                err["mtv_query"] = max(err["mtv_query"], e)
+            ties[name] += t
+        live += int(enabled.sum())
+    if not probe.chol or not probe.sat or live == 0:
+        raise AssertionError("the terrain rollout gave no kernel inputs to "
+                             f"check (live deep slots {live})")
+    b = deep.mtv[0][0]
+    args = [b[k] for k in _MTV_ORDER]
+    going = _mtv_lanes_in_round(args)
+    bound, by = _bound(*_mtv_work(b, going))
+    timing = dict(
+        N=b["wA"].shape[:-2].numel(), V=b["wA"].shape[-2],
+        E=b["heA"].shape[-3], F=b["nfA"].shape[-2],
+        live_lanes=int(deep.mtv[0][1].sum()), lanes_in_round=going,
+        ms=_median_ms(lambda: mtv_query.mtv_query_cuda(*args)),
+        device_ms=_graph_ms(lambda: mtv_query.mtv_query_cuda(*args)),
+        plain_ms=_median_ms(lambda: mtv_query.mtv_query_plain(*args)),
+        bound_ms=bound, bound_by=by)
+    phase("terrain_kernels", captured_chol_calls=len(probe.chol),
+          chol_shapes=sorted({tuple(A.shape) for A, _ in probe.chol}),
+          chol_solve_vs_f64=dict(solves, bwd_ratio_limit=CHOL_BWD_RATIO,
+                                 fwd_factor_limit=CHOL_FWD_FACTOR),
+          captured_sat_calls=len(probe.sat) + len(deep.sat),
+          sat_shapes=sorted(sat_shapes), captured_mtv_calls=len(deep.mtv),
+          live_deep_slots_checked=live, max_abs_err=err,
+          accepted_near_ties=ties, mtv_query_deep_timing=timing)
+    return err, solves, timing
+
+
+def terrain_cross_drift(m, start, n=16, nsteps=50):
+    """qpos of model m (f32) against the terrain scene in f64 on the CPU
+    after nsteps stirred steps from the first n envs of ``start`` (a state
+    of the f32 model with every object on the ground), both from the same
+    numbers: the fraction of qpos inside MANIP_CROSS_TOL, overall and body
+    by body, and the largest deviation of an object's position."""
+    import mujoco_sim_tpu_torch as mst
+    m64 = mst.put_model(mst.load_model(TERRAIN), torch.float64, "cpu")
+    outs = []
+    for mm_ in (m, m64):
+        d = mst.make_data(mm_, n)
+        d = d.replace(**{k: getattr(start, k)[:n].to(mm_.device, mm_.dtype)
+                         for k in ("time", "qpos", "qvel", "act",
+                                   "qacc_warmstart")})
+        d = mst.rollout(mm_, d, nsteps, ctrl_fn=_stir_ranged(mm_, n))
+        outs.append((d.qpos.double().cpu(), d.qvel.double().cpu(),
+                     d.ncon.cpu()))
+    dq = (outs[0][0] - outs[1][0]).abs()
+    ok = dq <= MANIP_CROSS_TOL
+    names = ("sphere", "capsule", "box", "ellipsoid", "cylinder", "rock")
+    return dict(
+        nenv=n, steps=nsteps, max_dev_qpos=float(dq.max()),
+        median_dev_qpos=float(dq.median()),
+        fraction_within_band=float(ok.double().mean()),
+        fraction_within_band_by_body={
+            nm: dict(position=float(ok[:, 7 * i:7 * i + 3].double().mean()),
+                     quaternion=float(ok[:, 7 * i + 3:7 * i + 7].double()
+                                      .mean()))
+            for i, nm in enumerate(names)},
+        arm=float(ok[:, 42:].double().mean()),
+        max_dev_object_position=float(torch.stack(
+            [dq[:, 7 * i:7 * i + 3] for i in range(6)]).max()),
+        max_dev_qvel=float((outs[0][1] - outs[1][1]).abs().max()),
+        ncon_range=[int(outs[1][2].min()), int(outs[1][2].max())])
+
+
+def terrain_cross_check(m, start):
+    r = terrain_cross_drift(m, start)
+    within, dpos = r["fraction_within_band"], r["max_dev_object_position"]
+    if within < TERRAIN_CROSS_FRACTION or not dpos <= MANIP_CROSS_POS_TOL:
+        raise AssertionError(
+            f"terrain card f32 vs CPU f64: {within:.3f} of qpos within "
+            f"{MANIP_CROSS_TOL}, objects off by up to {dpos} m")
+    phase("terrain_cross_check", scene="tendon_terrain.xml",
+          start="the card's state after the 220-step main path",
+          band=MANIP_CROSS_TOL, required_fraction=TERRAIN_CROSS_FRACTION,
+          object_band=MANIP_CROSS_POS_TOL, **r)
+
+
+# --------------------------------------------------------- control main path
+
+def control_main_path(card):
+    """manip_bin6's arm at 1024 envs under the computed-torque controller:
+    100 steps of step1 -> pd_accel -> apply_control -> step2 towards
+    seeded joint setpoints; then hw_interface.read's effort against
+    inverse() at the solved state."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.control import controllers as C
+    from mujoco_sim_tpu_torch.control import hw_interface as HW
+    m = mst.put_model(mst.load_model(MANIP))     # float32, on the card
+    joints = [f"a{i}" for i in range(1, 7)]
+    cfg = C.pd_config_for_joints(m, joints, kp=200.0, kd=30.0)
+    dofs = HW.joint_dofs(m, joints)
+    qadr = np.asarray(m.layout.jnt_qposadr)[
+        [m.names.joint_id(j) for j in joints]]
+    n, nsteps = MANIP_NENV, 100
+    rng = np.random.default_rng(3)
+    d = mst.make_data(m, n)
+    des = torch.zeros((n, m.nv), dtype=m.dtype, device=m.device)
+    target = torch.tensor(rng.uniform(-0.3, 0.3, (n, len(dofs))),
+                          dtype=m.dtype, device=m.device)
+    dofs_t = torch.as_tensor(dofs, device=m.device)
+    des[:, dofs_t] = target
+    st = C.make_pd_state(m, n)
+
+    def ctrl(m_, d_, st_):
+        st2 = C.pd_accel(cfg, st_, d_, des, m_.opt.timestep)
+        return C.apply_control(m_, d_, st2, cfg.ctrl_mask)
+
+    qa = torch.as_tensor(qadr, device=m.device)
+    err0 = float((d.qpos[:, qa] - target).abs().max())
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(nsteps):
+        d, st = mst.step_with_control(m, d, ctrl, st)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    bad = _float_leaves_finite(d)
+    if bad:
+        raise AssertionError(f"control: non-finite leaves: {bad}")
+    # the arm sweeps through the objects, whose contacts hold some joints
+    # short of their setpoints: the error is reported, not bounded
+    err = (d.qpos[:, qa] - target).abs()
+    # effort at the solved state against inverse dynamics
+    ds = mst.forward(m, d)
+    _, _, eff = HW.read(m, ds, dofs)
+    inv = mst.inverse(m, ds, ds.qacc)[:, dofs_t]
+    rel = float(((eff - inv).abs().amax(-1)
+                 / inv.abs().amax(-1).clamp(min=1.0)).max())
+    if rel > CONTROL_EFFORT_RTOL:
+        raise AssertionError(f"control: read effort vs inverse {rel} > "
+                             f"{CONTROL_EFFORT_RTOL} relative")
+    phase("control_main_path", scene="manip_bin6.xml",
+          controller="computed-torque PD, kp 200, kd 30, joints a1-a6",
+          nenv=n, steps=nsteps, launches=counts,
+          tracking_error_start=err0,
+          tracking_error_end_max=float(err.max()),
+          tracking_error_end_median=float(err.median()),
+          tracking_error_end_by_joint_median=[
+              float(v) for v in err.median(0).values],
+          ncon_end_range=[int(d.ncon.min()), int(d.ncon.max())],
+          effort_vs_inverse_max_rel=rel,
+          effort_band=CONTROL_EFFORT_RTOL, seconds=secs,
+          env_steps_per_s=n * nsteps / secs, card=card)
+
+
 def main(argv):
     t_start = time.perf_counter()
     only = set(argv)
@@ -1576,6 +1992,18 @@ def main(argv):
     if want("bighull"):
         mb_, bcounts, big_t = bighull_main_path(card)
         bighull_cross_check(mb_)
+    if want("terrain"):
+        t_phase = time.perf_counter()
+        mt_, tcounts, dt_end, tprobe = terrain_main_path(card)
+        tdeep_counts, tdeep = terrain_deep_pass(mt_, dt_end)
+        terr, tsolves, tdeep_t = terrain_kernels(tprobe, tdeep)
+        del tprobe, tdeep
+        terrain_cross_check(mt_, dt_end)
+        phase("terrain_phase", seconds=time.perf_counter() - t_phase)
+    if want("control"):
+        t_phase = time.perf_counter()
+        control_main_path(card)
+        phase("control_phase", seconds=time.perf_counter() - t_phase)
     phase("total", seconds=time.perf_counter() - t_start)
     if only:
         return
@@ -1583,24 +2011,29 @@ def main(argv):
     c42 = chol_t[(42, MANIP_NENV)]
     c66 = chol_t[(66, MANIP_NENV)]
     f66 = fact_t[(66, MANIP_NENV)]
-    worst = {k: max(rand_err[k], cap_err[k]) for k in rand_err}
+    worst = {k: max(rand_err[k], cap_err[k], terr.get(k, 0.0))
+             for k in rand_err}
     mm, bm = t["mesh_mesh"], t["box_mesh"]
     kernels = [
         dict(name="chol_solve", route="cuda", source=src + "chol_solve.cu",
              replaces="mujoco_sim_tpu/ops/pallas_chol.py:40",
              launches=counts["chol_solve"], max_abs_err=chol_err,
+             terrain_capture=tsolves,
              ms=c42["ms"], device_ms=c42["device_ms"],
              plain_ms=c42["plain_ms"],
              bound_ms=c42["bound_ms"], bound_by=c42["bound_by"],
              library_ms=c42["library_ms"], launches_box_path=box_launches,
+             launches_terrain_path=tcounts["chol_solve"],
              launches_precise_path=pcounts["chol_solve"],
              launches_pile_path=pile_counts["chol_solve"],
+             n38_N1024=chol_t[(38, MANIP_NENV)],
              n66_N1024=c66, n128_N256=chol_t[(128, 256)]),
         dict(name="hull_ref_face_depth", route="cuda",
              source=src + "hull_sat.cu",
              replaces="mujoco_sim_tpu/ops/pallas_sat.py:40",
              launches=counts["hull_ref_face_depth"],
              launches_precise_path=pcounts["hull_ref_face_depth"],
+             launches_terrain_path=tcounts["hull_ref_face_depth"],
              max_abs_err=worst["hull_ref_face_depth"],
              ms=mm["ms"], device_ms=mm["device_ms"], plain_ms=mm["plain_ms"],
              bound_ms=mm["bound_ms"], bound_by=mm["bound_by"],
@@ -1614,6 +2047,9 @@ def main(argv):
              replaces="mujoco_sim_tpu/ops/pallas_refine.py:73",
              launches=counts["mtv_query"],
              launches_precise_path=pcounts["mtv_query"],
+             launches_terrain_path=tcounts["mtv_query"],
+             launches_terrain_deep_pass=tdeep_counts["mtv_query"],
+             terrain_deep=tdeep_t,
              max_abs_err=worst["mtv_query"],
              launches_bighull_path=bcounts["mtv_query"],
              ms=t["mtv_query"]["ms"], device_ms=t["mtv_query"]["device_ms"],

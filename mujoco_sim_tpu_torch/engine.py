@@ -15,9 +15,10 @@ materialized), as on the JAX package's TPU path; only with
 the real factor on every device (ops/chol_factor: a second hand-written
 kernel on the card).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-site and tendon transmissions, tendons (with their rows and sensors),
-heightfields and fluid drag.
+Tendons (fixed and spatial, with wraps and pulleys), site and tendon
+transmissions, heightfields and fluid drag run as in the JAX package; the
+runtime, server and multi-device layers are not ported yet (ROADMAP
+§A.9-A.11).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from mujoco_sim_tpu_torch.models.model import (
     GainType, BiasType, TrnType,
 )
 from mujoco_sim_tpu_torch.ops import chol, smooth, support
+from mujoco_sim_tpu_torch.ops import tendon as tendon_mod
 from mujoco_sim_tpu_torch.ops import passive as passive_mod
 from mujoco_sim_tpu_torch.ops import integrate as integrate_mod
 from mujoco_sim_tpu_torch.ops import math as mm
@@ -167,16 +169,15 @@ def make_data(m: Model, nenv: int, dtype=None, keyframe=None) -> Data:
 
 
 def set_const(m: Model) -> Model:
-    """Compute qpos0-derived constants: dof/body invweight0 (mj_setConst).
+    """Compute qpos0-derived constants: dof/body/tendon invweight0, the
+    tendon lengths at qpos0 and spatial springlength defaults, and
+    actuator_acc0 (mj_setConst).
 
     Takes and returns a host (numpy-leaf) model, as models/compile.py
-    builds it; the computation runs in float64 on the CPU.  These feed the
-    constraint regularization diagApprox (ops/constraint.py).
+    builds it; the computation runs in float64 on the CPU.  The
+    invweights feed the constraint regularization diagApprox
+    (ops/constraint.py).
     """
-    if m.ntendon:
-        raise NotImplementedError(
-            "tendon constants are not ported yet (ROADMAP §A.7)")
-    _check_transmissions(m)
     mt = put_model(m, torch.float64, "cpu")
     qpos0 = mt.qpos0[None]
     kin = smooth.kinematics(mt, qpos0)
@@ -198,24 +199,39 @@ def set_const(m: Model) -> Model:
     At = torch.einsum("biv,vw,biw->b", Jt, Minv, Jt) / 3.0
     Ar = torch.einsum("biv,vw,biw->b", Jr, Minv, Jr) / 3.0
     body_invweight0 = torch.stack([At, Ar], dim=-1)
-    # actuator_acc0 = |M^-1 moment| at qpos0 (joint transmissions: the
-    # static 0/1 dof mask scaled by gear[0])
-    mom = (torch.as_tensor(m.layout.act_moment01, dtype=torch.float64)
+    springlength = torch.tensor(np.asarray(m.ten_springlength, np.float64))
+    if m.ntendon:
+        length0, W = tendon_mod.tendon_quantities(
+            mt, qpos0, kin["site_xpos"], cdof[None],
+            com["subtree_com"][:, mt.layout.dev.body_rootid],
+            kin["geom_xpos"], kin["geom_xmat"], mt.geom_size[None])
+        length0, W = length0[0], W[0]
+        ten_invweight0 = ((W @ Minv) * W).sum(-1)
+        # spatial-tendon springlength defaults were NaN-marked at compile
+        # (the wrap path needs the full qpos0 evaluation)
+        springlength = torch.where(torch.isnan(springlength),
+                                   length0[:, None], springlength)
+    else:
+        W = None
+        ten_invweight0 = length0 = torch.zeros(0, dtype=torch.float64)
+    # actuator_acc0 = |M^-1 moment| at qpos0: joint transmissions take the
+    # static 0/1 dof mask scaled by gear[0], tendon transmissions gear[0]
+    # times the tendon's moment row; site rows stay 0 (a muscle on a site
+    # needs an explicit lengthrange, models/compile.py)
+    lay = m.layout
+    mom = (torch.as_tensor(lay.act_moment01, dtype=torch.float64)
            * mt.actuator_gear[:, :1])
+    ten_rows = np.nonzero(lay.act_trntype == int(TrnType.TENDON))[0]
+    if len(ten_rows) and W is not None:
+        mom[ten_rows] = (mt.actuator_gear[ten_rows, :1]
+                         * W[lay.act_trnid[ten_rows]])
     acc0 = torch.linalg.norm(mom @ Minv, dim=-1)
     return m.replace(dof_invweight0=dof_invweight0.numpy(),
                      body_invweight0=body_invweight0.numpy(),
+                     ten_invweight0=ten_invweight0.numpy(),
+                     ten_springlength=springlength.numpy(),
+                     ten_length0=length0.numpy(),
                      actuator_acc0=acc0.numpy())
-
-
-def _check_transmissions(m: Model):
-    trn = m.layout.act_trntype
-    if (trn == int(TrnType.SITE)).any():
-        raise NotImplementedError(
-            "site transmissions are not ported yet (ROADMAP §A.7)")
-    if (trn == int(TrnType.TENDON)).any():
-        raise NotImplementedError(
-            "tendon transmissions are not ported yet (ROADMAP §A.7)")
 
 
 def _com_dict(m: Model, d: Data) -> dict:
@@ -245,7 +261,7 @@ def fwd_position(m: Model, d: Data) -> Data:
         qM=qM, qLD=qLD,
     )
     if m.ntendon:
-        raise NotImplementedError("tendons are not ported yet (ROADMAP §A.7)")
+        d = _tendon(m, d)
     # collision + constraint assembly
     from mujoco_sim_tpu_torch.ops import collision as collision_mod
     from mujoco_sim_tpu_torch.ops import constraint as constraint_mod
@@ -254,13 +270,28 @@ def fwd_position(m: Model, d: Data) -> Data:
     return d
 
 
+def _tendon(m: Model, d: Data) -> Data:
+    """The tendon stage of fwd_position: lengths, moment rows and
+    velocities from the kinematics already in d."""
+    tlen, tJ = tendon_mod.tendon_quantities(
+        m, d.qpos, d.site_xpos, d.cdof,
+        d.subtree_com[:, m.layout.dev.body_rootid],
+        d.geom_xpos, d.geom_xmat, d.geom_size)
+    return d.replace(ten_length=tlen, ten_J=tJ,
+                     ten_velocity=torch.einsum("btv,bv->bt", tJ, d.qvel))
+
+
 def fwd_velocity(m: Model, d: Data) -> Data:
     com = _com_dict(m, d)
     com_full = dict(com, cinert=_cinert(m, d))
     vel = smooth.com_vel(m, com_full, d.qvel)
     qfrc_bias = smooth.rne(m, com_full, vel, d.qvel)
+    ten = ((d.ten_length, d.ten_velocity, d.ten_J) if m.ntendon else None)
+    fluid_state = ((vel["cvel"], d.ximat, d.body_inertia)
+                   if m.opt.has_fluid else None)
     qfrc_passive, qsp, qdm, qgc = passive_mod.passive(
-        m, com, d.qpos, d.qvel, d.xipos, d.body_mass)
+        m, com, d.qpos, d.qvel, d.xipos, d.body_mass, ten=ten,
+        fluid_state=fluid_state)
     return d.replace(cvel=vel["cvel"], cdof_dot=vel["cdof_dot"],
                      qfrc_bias=qfrc_bias, qfrc_passive=qfrc_passive,
                      qfrc_spring=qsp, qfrc_damper=qdm, qfrc_gravcomp=qgc)
@@ -283,7 +314,22 @@ def _actuation_plan_np(m: Model):
         (lay.act_trntype == int(TrnType.JOINT)) & (lay.act_trnjnt >= 0)
         & (lay.jnt_type[np.maximum(lay.act_trnjnt, 0)]
            == int(JointType.BALL)))[0]
+    ten = np.nonzero(lay.act_trntype == int(TrnType.TENDON))[0]
+    site = np.nonzero(lay.act_trntype == int(TrnType.SITE))[0]
+    sid = lay.act_trnid[site]
+    rid = lay.act_refid[site]
+    has_ref = rid >= 0
+    rid_s = np.where(has_ref, rid, 0)
+    bs = lay.site_bodyid[sid]
+    br = lay.site_bodyid[rid_s]
     return dict(
+        ten_rows=ten.astype(np.int64),
+        ten_id=lay.act_trnid[ten].astype(np.int64),
+        site_rows=site.astype(np.int64), site_id=sid.astype(np.int64),
+        ref_id=rid_s.astype(np.int64), has_ref=has_ref.astype(bool),
+        site_body=bs.astype(np.int64), ref_body=br.astype(np.int64),
+        site_root=lay.body_rootid[bs].astype(np.int64),
+        ref_root=lay.body_rootid[br].astype(np.int64),
         moment01=np.asarray(lay.act_moment01, np.float64),
         g0eff=np.asarray(lay.act_gear0_eff, np.float64),
         len_valid=np.asarray(lay.act_len_valid, np.float64),
@@ -313,11 +359,12 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     are the fixed/affine gain + none/affine bias special cases, so the
     whole set is one branch-free vectorized formula; joint transmissions
     make the moment matrix a STATIC 0/1 dof mask scaled by gear[0]
-    (Layout.act_moment01), so qfrc_actuator is a single matmul.  Site and
-    tendon transmissions are not ported (ROADMAP §A.7) and raise."""
+    (Layout.act_moment01), so their qfrc_actuator is a single matmul.
+    Tendon rows read the tendon's length and velocity and take gear[0]
+    times its moment row; site rows take the site jacobian (minus the
+    refsite's) in the site/refsite frame dotted with the 6D gear."""
     if m.nu == 0:
         return d
-    _check_transmissions(m)
     dtype = d.qpos.dtype
     pl = m.layout.const("actuation", lambda: _actuation_plan_np(m), dtype)
     lay = m.layout
@@ -339,6 +386,55 @@ def fwd_actuation(m: Model, d: Data) -> Data:
         ang = torch.where(ang > torch.pi, ang - 2.0 * torch.pi, ang)
         rv = q[..., 1:] / sin_half[..., None] * ang[..., None]
         length = length.index_copy(1, rows, (gear[rows, :3] * rv).sum(-1))
+
+    # tendon transmissions: length/velocity are gathers of the tendon
+    # state, the moment row is gear0 * ten_J
+    moment_ten = None
+    if len(pl["ten_rows"]):
+        rows, tid = pl["ten_rows"], pl["ten_id"]
+        length = length.index_copy(1, rows, gear0[rows] * d.ten_length[:, tid])
+        velocity = velocity.index_copy(1, rows,
+                                       gear0[rows] * d.ten_velocity[:, tid])
+        moment_ten = gear0[rows, None] * d.ten_J[:, tid]      # (B, nt, nv)
+
+    # site transmissions (mjTRN_SITE): the moment row is the site jacobian
+    # (minus the refsite's, if any) expressed in the site/refsite frame and
+    # dotted with the 6D gear; the refsite length's rotation part composes
+    # each site's quat OFFSET-FIRST with its body xquat (site_quat o xquat,
+    # not the xmat chain order) and takes subQuat in the refsite frame
+    moment_site = None
+    if len(pl["site_rows"]):
+        from mujoco_sim_tpu_torch.ops.constraint import (_point_jacobian,
+                                                         _rot_jacobian)
+        rows, sid, rid = pl["site_rows"], pl["site_id"], pl["ref_id"]
+        bs, br = pl["site_body"], pl["ref_body"]
+        origin_s = d.subtree_com[:, pl["site_root"]]
+        origin_r = d.subtree_com[:, pl["ref_root"]]
+        ps, Rs = d.site_xpos[:, sid], d.site_xmat[:, sid]
+        pr, Rr = d.site_xpos[:, rid], d.site_xmat[:, rid]
+        gearS = gear[rows]                                     # (ns, 6)
+        href = pl["has_ref"].to(dtype)[:, None, None]
+        jacp = (_point_jacobian(m, d.cdof, ps, bs, origin_s)
+                - href * _point_jacobian(m, d.cdof, pr, br, origin_r))
+        jacr = (_rot_jacobian(m, d.cdof, bs)
+                - href * _rot_jacobian(m, d.cdof, br))
+        R_use = torch.where(href > 0.5, Rr, Rs)               # (B, ns, 3, 3)
+        # local jacobian rows R^T J
+        jl_p = (R_use[..., :, :, None] * jacp[..., :, None, :]).sum(-3)
+        jl_r = (R_use[..., :, :, None] * jacr[..., :, None, :]).sum(-3)
+        moment_site = ((gearS[:, :3, None] * jl_p).sum(-2)
+                       + (gearS[:, 3:, None] * jl_r).sum(-2))  # (B, ns, nv)
+        # length (0 without refsite)
+        qts = mm.quat_mul(m.site_quat.to(dtype)[sid], d.xquat[:, bs])
+        qtr = mm.quat_mul(m.site_quat.to(dtype)[rid], d.xquat[:, br])
+        rotvec = mm.quat_sub(qts, qtr)
+        dp_ref = (Rr * (ps - pr)[..., :, None]).sum(-2)       # R_r^T dp
+        len_site = ((gearS[:, :3] * dp_ref).sum(-1)
+                    + (gearS[:, 3:] * rotvec).sum(-1))
+        len_site = torch.where(pl["has_ref"], len_site, 0.0)
+        vel_site = (moment_site * d.qvel[:, None, :]).sum(-1)
+        length = length.index_copy(1, rows, len_site)
+        velocity = velocity.index_copy(1, rows, vel_site)
 
     ctrl = d.ctrl.to(dtype)
     cr = m.actuator_ctrlrange.to(dtype)
@@ -428,7 +524,13 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     force = torch.where(pl["forcelimited"],
                         torch.minimum(torch.maximum(force, fr[:, 0]),
                                       fr[:, 1]), force)
-    qfrc = (force * g0eff) @ moment01
+    qfrc = (force * g0eff) @ moment01   # joint rows (site/tendon rows zero)
+    if moment_site is not None:
+        qfrc = qfrc + torch.einsum("bs,bsv->bv", force[:, pl["site_rows"]],
+                                   moment_site)
+    if moment_ten is not None:
+        qfrc = qfrc + torch.einsum("bs,bsv->bv", force[:, pl["ten_rows"]],
+                                   moment_ten)
     return d.replace(act_dot=act_dot, actuator_length=length,
                      actuator_velocity=velocity, actuator_force=force,
                      qfrc_actuator=qfrc)
@@ -552,8 +654,8 @@ def _implicit(m: Model, d: Data, fast: bool) -> Data:
     tangent per dof, shared by all envs, since envs are independent),
     stacked into the (B, nv, nv) Jacobian.  The modified matrix is
     nonsymmetric, so a general LU solve (torch.linalg.solve) is used.
-    Fluid and tendon terms are not ported (ROADMAP §A.7): such models
-    raise earlier, in fwd_position / fwd_velocity."""
+    Fluid drag enters the differentiated force (its jvp columns), tendon
+    damping MuJoCo's diagonal approximation diag(sum_t b_t J_t^2)."""
     dtype = d.qpos.dtype
     h = m.opt.timestep.to(dtype)
     MhB = d.qM + torch.diag(h * m.dof_damping.to(dtype))
@@ -564,10 +666,16 @@ def _implicit(m: Model, d: Data, fast: bool) -> Data:
         com_full = dict(_com_dict(m, d), cinert=_cinert(m, d))
 
         def frc_of_v(v):
-            # the velocity-dependent force whose derivative enters the
-            # implicit matrix: the RNE bias (mjd_smooth_vel)
+            # everything velocity-dependent whose derivative enters the
+            # implicit matrix: RNE bias MINUS the velocity-dependent
+            # passive forces (fluid drag) -- mjd_smooth_vel + mjd_passive_vel
             vel = smooth.com_vel(m, com_full, v)
-            return smooth.rne(m, com_full, vel, v)
+            out = smooth.rne(m, com_full, vel, v)
+            if m.opt.has_fluid:
+                out = out - passive_mod.fluid(
+                    m, com_full, d.xipos, vel["cvel"], d.ximat, d.body_mass,
+                    d.body_inertia)
+            return out
 
         cols = []
         for j in range(m.nv):
@@ -575,7 +683,13 @@ def _implicit(m: Model, d: Data, fast: bool) -> Data:
             tangent[:, j] = 1.0
             cols.append(torch.func.jvp(frc_of_v, (d.qvel,), (tangent,))[1])
         dfrc_dv = torch.stack(cols, dim=-1)   # (B, nv, nv), nonsymmetric
-        qacc = torch.linalg.solve(MhB + h * dfrc_dv, rhs)
+        A = MhB + h * dfrc_dv
+        if m.ntendon:
+            # tendon damping enters as the DIAGONAL approximation of
+            # J^T b J (MuJoCo folds it like joint damping)
+            b = m.ten_damping.to(dtype)
+            A = A + h * torch.diag_embed((b[:, None] * d.ten_J ** 2).sum(-2))
+        qacc = torch.linalg.solve(A, rhs)
     qvel = torch.where(_dof_active(m, d), d.qvel + h * qacc, 0.0)
     qpos = integrate_mod.integrate_pos(m, d.qpos, qvel, h)
     return d.replace(qpos=qpos, qvel=qvel, act=_advance_act(m, d, h),

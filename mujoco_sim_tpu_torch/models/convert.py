@@ -3,8 +3,12 @@
 ``from_jax_model`` / ``from_jax_data`` take the JAX package's ``Model`` /
 ``Data`` as duck-typed objects whose leaves ``np.asarray`` can read (its
 ``Layout`` exposes ``_arrays``) and return the port's containers, without
-importing jax.  The parity tests use them to feed both packages the same
-compiled model and state.
+importing jax; ``from_jax_pd_state`` / ``from_jax_pd_config`` do the same
+for the controller state and gains (control/controllers.py).  The parity
+tests use them to feed both packages the same compiled model and state.
+The Layout crosses whole, so the tendon tables (``ten_Wq``, the leg and
+wrap-leg tables, ``tlim_*``), the heightfield grid counts and
+``opt.density/viscosity/wind/has_fluid`` come with it.
 """
 
 from __future__ import annotations
@@ -57,3 +61,22 @@ def from_jax_data(d, device="cpu") -> Data:
                    **({"contact": conv(Contact, src.contact)}
                       if cls is Data else {}))
     return conv(Data, d)
+
+
+def from_jax_pd_state(st, device="cpu"):
+    """Port PDState from a JAX package PDState whose leaves already carry
+    the leading env axis (e.g. vmapped)."""
+    from mujoco_sim_tpu_torch.control.controllers import PDState
+    return PDState(**{n: torch.as_tensor(np.array(getattr(st, n)),
+                                         device=device)
+                      for n in leaf_names(PDState)})
+
+
+def from_jax_pd_config(cfg, device="cpu"):
+    """Port PDConfig (per-dof gains, shared by every env) from a JAX
+    package PDConfig."""
+    from mujoco_sim_tpu_torch.control.controllers import PDConfig
+    return PDConfig(**{n: torch.as_tensor(
+        np.array(getattr(cfg, n)).astype(np.int64)
+        if n == "dof_qposadr" else np.array(getattr(cfg, n)), device=device)
+        for n in leaf_names(PDConfig)})

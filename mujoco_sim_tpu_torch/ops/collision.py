@@ -17,7 +17,10 @@ CUDA kernels on the card.  No gate asks the host: the top-P fallback and
 the deep-pair manifold are always computed and selected with
 ``torch.where``.
 
-Heightfields are ROADMAP §A.7 and raise NotImplementedError here.
+Heightfield pairs probe points of the other geom against the grid's
+triangulated surface; the height table is read as one flat (nhfield,
+nrow * ncol) tensor with per-(env, pair, point) indices, never copied per
+env.
 
 Contact frame convention matches MuJoCo: normal points from geom1 to geom2,
 frame rows = [normal, tangent1, tangent2], pos = midpoint between surfaces.
@@ -772,6 +775,124 @@ _DISPATCH = {
     (GeomType.BOX, GeomType.BOX): (_box_box, False),
 }
 
+# ---------------------------------------------------------------------------
+# Heightfield narrowphase: probe points against the triangulated surface.
+# Grid layout (the JAX package's, probed against MuJoCo): data row 0 =
+# min-y, each cell split along the (low,low)->(high,high) diagonal, point
+# depth measured against the triangle's plane.  ``hf`` carries the group's
+# static tables: the flat height table (nhfield, R * C) with its padded
+# row length C, and per pair (P,) the hfield id, nrow, ncol and size (P, 4).
+# ---------------------------------------------------------------------------
+
+def _hfield_point_dist(hf, pts):
+    """pts (B, P, k, 3) in the hfield's LOCAL frame -> (dist (B, P, k),
+    normal (B, P, k, 3) local)."""
+    size = hf["size"]
+    rx = size[:, None, 0]
+    ry = size[:, None, 1]
+    zt = size[:, None, 2]
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    nr = hf["nrow"][:, None]
+    nc = hf["ncol"][:, None]
+    gx = (x + rx) / (2.0 * rx) * (nc - 1.0)
+    gy = (y + ry) / (2.0 * ry) * (nr - 1.0)
+    i0 = torch.minimum(torch.clamp(torch.floor(gx), min=0.0), nc - 2.0)
+    j0 = torch.minimum(torch.clamp(torch.floor(gy), min=0.0), nr - 2.0)
+    fx = gx - i0
+    fy = gy - j0
+    i0 = i0.long()
+    j0 = j0.long()
+    C_ = hf["C"]
+    hid = hf["hid"][:, None]
+
+    def take(jj, ii):
+        return hf["flat"][hid, jj * C_ + ii] * zt
+
+    z00 = take(j0, i0)
+    z10 = take(j0, i0 + 1)
+    z01 = take(j0 + 1, i0)
+    z11 = take(j0 + 1, i0 + 1)
+    lowtri = fx >= fy                      # (low,low)-(high,high) diagonal
+    surf = torch.where(lowtri,
+                       z00 + fx * (z10 - z00) + fy * (z11 - z10),
+                       z00 + fx * (z11 - z01) + fy * (z01 - z00))
+    cw = 2.0 * rx / (nc - 1.0)             # world cell extents
+    ch = 2.0 * ry / (nr - 1.0)
+    dzdx = torch.where(lowtri, z10 - z00, z11 - z01) / cw
+    dzdy = torch.where(lowtri, z11 - z10, z01 - z00) / ch
+    n = torch.stack([-dzdx, -dzdy, torch.ones_like(dzdx)], dim=-1)
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
+    dist = (z - surf) * n[..., 2]          # signed distance to the plane
+    inside = (x.abs() <= rx) & (y.abs() <= ry)
+    return torch.where(inside, dist, 1e9), n
+
+
+def _hfield_probe(hp, hR, hf, pts_world, radius):
+    """shared tail: world probe points with an inflation radius ->
+    (dist, pos, nrm) world."""
+    loc = _rotate_rows(hR, pts_world - hp[..., None, :])
+    dist, n_loc = _hfield_point_dist(hf, loc)
+    nrm = _rotate_rows_fwd(hR, n_loc)
+    dist = dist - radius
+    pos = pts_world - nrm * (radius + 0.5 * dist)[..., None]
+    return dist, pos, nrm
+
+
+def _hfield_sphere(hp, hR, hf, sp, sR, size2):
+    return _hfield_probe(hp, hR, hf, sp[..., None, :], size2[..., 0:1])
+
+
+def _hfield_capsule(hp, hR, hf, cp, cR, size2):
+    axis = cR[..., :, 2]
+    r = size2[..., 0:1]
+    hh = size2[..., 1:2]
+    ends = torch.stack([cp + axis * hh, cp - axis * hh, cp], dim=-2)
+    return _hfield_probe(hp, hR, hf, ends, r)
+
+
+def _hfield_ellipsoid(hp, hR, hf, ep, eR, size2):
+    # support point along the hfield's -z axis (plane-ellipsoid style)
+    up = hR[..., :, 2]
+    u_loc = (eR * up[..., :, None]).sum(-2)                  # R2^T up
+    s = size2
+    denom = torch.sqrt(((s * u_loc) ** 2).sum(-1) + 1e-30)
+    p_loc = -(s * s * u_loc) / denom[..., None]
+    p = ep + (eR * p_loc[..., None, :]).sum(-1)
+    return _hfield_probe(hp, hR, hf, p[..., None, :],
+                         torch.zeros_like(s[..., 0:1]))
+
+
+def _pick4(d, pos, nrm):
+    """The four deepest probes, ties to the lowest index (a rank count,
+    never torch.topk)."""
+    idx = _rank_slots(-d, 4)
+    return _pick(d, idx), _pick_rows(pos, idx), _pick_rows(nrm, idx)
+
+
+def _hfield_box(hp, hR, hf, bp, bR, size2):
+    corners = _corners(bp)                                   # (8, 3)
+    pw = bp[..., None, :] + _rotate_rows_fwd(bR, corners * size2[..., None, :])
+    d, pos, nrm = _hfield_probe(hp, hR, hf, pw,
+                                torch.zeros_like(size2[..., 0:1]))
+    return _pick4(d, pos, nrm)
+
+
+def _hfield_mesh(hp, hR, hf, mp, mR, verts, vmask):
+    pw = mp[..., None, :] + _rotate_rows_fwd(mR, verts)
+    d, pos, nrm = _hfield_probe(hp, hR, hf, pw,
+                                torch.zeros_like(mp[..., 0:1]))
+    d = torch.where(vmask > 0.5, d, 1e9)
+    return _pick4(d, pos, nrm)
+
+
+_DISPATCH_HF = {
+    (GeomType.HFIELD, GeomType.SPHERE): (_hfield_sphere, False),
+    (GeomType.HFIELD, GeomType.CAPSULE): (_hfield_capsule, False),
+    (GeomType.HFIELD, GeomType.ELLIPSOID): (_hfield_ellipsoid, False),
+    (GeomType.HFIELD, GeomType.BOX): (_hfield_box, False),
+    (GeomType.HFIELD, GeomType.MESH): (_hfield_mesh, True),
+}
+
 # hull dispatch (two-level top-P groups): needs planes of geom2 (+1 for m-m)
 _DISPATCH_MESH = {
     (GeomType.SPHERE, GeomType.MESH): _sphere_mesh,
@@ -835,18 +956,20 @@ def _plan_np(m: Model):
         cursor += g.ncand
         hull = g.key in EXPENSIVE
         any_hull |= hull
-        if g.key[0] == GeomType.HFIELD or (
-                not hull and g.key not in _DISPATCH):
-            raise NotImplementedError(
-                f"collision pair {g.key[0].name}-{g.key[1].name} is not "
-                "ported yet (ROADMAP §A.7, heightfields)")
+        assert hull or g.key in _DISPATCH or g.key in _DISPATCH_HF, g.key
         sel = g.pair_idx
         g1 = lay.pair_geom1[sel]
         g2 = lay.pair_geom2[sel]
-        out.append(dict(key=g.key, hull=hull, sel=sel, cap=g.cap,
-                        top_p=g.top_p, g1=g1, g2=g2,
-                        b1=lay.geom_bodyid[g1], b2=lay.geom_bodyid[g2],
-                        h2=lay.geom_hullid[g2].astype(np.int64)))
+        grp = dict(key=g.key, hull=hull, sel=sel, cap=g.cap,
+                   top_p=g.top_p, g1=g1, g2=g2,
+                   b1=lay.geom_bodyid[g1], b2=lay.geom_bodyid[g2],
+                   h2=lay.geom_hullid[g2].astype(np.int64))
+        if g.key[0] == GeomType.HFIELD:
+            hid = lay.geom_hfieldid[g1].astype(np.int64)
+            # grid counts are static per pair
+            grp.update(hfid=hid, hf_nrow=lay.hf_nrow[hid].astype(np.float64),
+                       hf_ncol=lay.hf_ncol[hid].astype(np.float64))
+        out.append(grp)
     plan = dict(
         groups=out,
         efc_address=(m.contact_efcadr
@@ -974,16 +1097,30 @@ def collision(m: Model, d: Data) -> Data:
             p2, R2 = d.geom_xpos[:, g2], d.geom_xmat[:, g2]
             s1 = sizes[:, g1]
             s2 = sizes[:, g2]
-            fn, needs_mesh = _DISPATCH[g["key"]]
-            if needs_mesh:
-                # mjc_PlaneConvex's below-plane test includes the pair
-                # margin
-                dist, pos, nrm = fn(p1, R1, s1, p2, R2,
-                                    m.mesh_vert_pad.to(dtype)[g["h2"]],
-                                    m.mesh_vert_mask.to(dtype)[g["h2"]],
-                                    margin=mrg[:, None])
+            if g["key"][0] == GeomType.HFIELD:
+                fn, needs_mesh = _DISPATCH_HF[g["key"]]
+                hdata = m.hfield_data.to(dtype)        # (nhfield, R, C)
+                hf = dict(flat=hdata.reshape(hdata.shape[0], -1),
+                          C=hdata.shape[-1], hid=g["hfid"],
+                          nrow=g["hf_nrow"], ncol=g["hf_ncol"],
+                          size=m.hfield_size.to(dtype)[g["hfid"]])
+                if needs_mesh:
+                    dist, pos, nrm = fn(p1, R1, hf, p2, R2,
+                                        m.mesh_vert_pad.to(dtype)[g["h2"]],
+                                        m.mesh_vert_mask.to(dtype)[g["h2"]])
+                else:
+                    dist, pos, nrm = fn(p1, R1, hf, p2, R2, s2)
             else:
-                dist, pos, nrm = fn(p1, R1, s1, p2, R2, s2)
+                fn, needs_mesh = _DISPATCH[g["key"]]
+                if needs_mesh:
+                    # mjc_PlaneConvex's below-plane test includes the pair
+                    # margin
+                    dist, pos, nrm = fn(p1, R1, s1, p2, R2,
+                                        m.mesh_vert_pad.to(dtype)[g["h2"]],
+                                        m.mesh_vert_mask.to(dtype)[g["h2"]],
+                                        margin=mrg[:, None])
+                else:
+                    dist, pos, nrm = fn(p1, R1, s1, p2, R2, s2)
             act = dist < mrg[..., None]
             act = act & body_act[:, g["b1"]][..., None] & body_act[
                 :, g["b2"]][..., None]

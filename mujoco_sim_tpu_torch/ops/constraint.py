@@ -6,11 +6,10 @@ reference acceleration from solref, regularization R = (1-d)/d * diagApprox)
 with *static* row layout: every potential row owns a fixed slot
 (models/compile.py assigns addresses); inactive rows are masked.  Rows are
 built as per-section blocks and concatenated in the compile-time address
-order (equality, dof friction, limits, contacts).
+order (equality, dof friction, joint limits, tendon limits, contacts).
 
-Equality rows cover connect, weld and joint (polycoef) equalities, contact
-rows both friction cones.  Tendon equalities and tendon-limit rows are not
-ported yet (ROADMAP §A.7) and raise.
+Equality rows cover connect, weld, joint and tendon (polycoef)
+equalities, contact rows both friction cones.
 """
 
 from __future__ import annotations
@@ -97,9 +96,13 @@ def _eq_plan_np(m: Model) -> dict:
     csel = np.nonzero(et == int(EqType.CONNECT))[0]
     wsel = np.nonzero(et == int(EqType.WELD))[0]
     tsel = np.nonzero(et == int(EqType.TENDON))[0]
-    plan = dict(jsel=jsel, csel=csel, wsel=wsel, n_tendon=len(tsel),
+    plan = dict(jsel=jsel, csel=csel, wsel=wsel, tsel=tsel,
                 c_o1=lay.eq_obj1id[csel], c_o2=lay.eq_obj2id[csel],
                 w_o1=lay.eq_obj1id[wsel], w_o2=lay.eq_obj2id[wsel])
+    if len(tsel):
+        t_has2 = lay.eq_obj2id[tsel] >= 0
+        plan.update(t_id1=lay.eq_obj1id[tsel], t_has2=t_has2,
+                    t_id2=np.where(t_has2, lay.eq_obj2id[tsel], 0))
     if len(jsel):
         o1 = lay.eq_obj1id[jsel]
         o2 = lay.eq_obj2id[jsel]
@@ -175,9 +178,6 @@ def make_constraint(m: Model, d: Data, com: dict) -> Data:
     nefc, nv = m.nefc_max, m.nv
     if nefc == 0:
         return d
-    if len(lay.tlim_tenid):
-        raise NotImplementedError(
-            "tendon-limit rows are not ported yet (ROADMAP §A.7)")
     B = d.qpos.shape[0]
     dev = d.qpos.device
     plan = lay.const(("constraint", m.opt.cone, m.contact_efcadr,
@@ -214,9 +214,6 @@ def make_constraint(m: Model, d: Data, com: dict) -> Data:
     # ---------------- equality ----------------
     if m.neq:
         ep = lay.const("eqplan", lambda: _eq_plan_np(m), dtype)
-        if ep["n_tendon"]:
-            raise NotImplementedError(
-                "tendon equality rows are not ported yet (ROADMAP §A.7)")
         eq_off = (disable & int(DisableBit.EQUALITY)) != 0
         eq_data = m.eq_data.to(dtype)
         eq_solref = m.eq_solref.to(dtype)
@@ -255,6 +252,26 @@ def make_constraint(m: Model, d: Data, com: dict) -> Data:
             active = eq_act0[js] & d.body_active[:, ep["j_body"]]
             emit_eq(rows, q1 - poly, eq_solref[js][None], eq_solimp[js][None],
                     diag[None], active)
+
+        if len(ep["tsel"]):
+            # tendon couple: (L1 - L1_0) = poly(L2 - L2_0), the joint
+            # couple's polynomial through the tendon moment rows
+            ts, has2 = ep["tsel"], ep["t_has2"]
+            t1, t2 = ep["t_id1"], ep["t_id2"]
+            len0 = m.ten_length0.to(dtype)
+            l1 = d.ten_length[:, t1] - len0[t1]
+            dx = torch.where(has2, d.ten_length[:, t2] - len0[t2], 0.0)
+            c = eq_data[ts][:, :5]
+            poly = (((c[:, 4] * dx + c[:, 3]) * dx + c[:, 2]) * dx
+                    + c[:, 1]) * dx + c[:, 0]
+            dpoly = ((4.0 * c[:, 4] * dx + 3.0 * c[:, 3]) * dx
+                     + 2.0 * c[:, 2]) * dx + c[:, 1]
+            dpoly = torch.where(has2, dpoly, 0.0)
+            rows = d.ten_J[:, t1] - dpoly[..., None] * d.ten_J[:, t2]
+            tinv = m.ten_invweight0.to(dtype)
+            diag = tinv[t1] + torch.where(has2, tinv[t2], 0.0)
+            emit_eq(rows, l1 - poly, eq_solref[ts][None], eq_solimp[ts][None],
+                    diag[None], eq_act0[ts][None])
 
         if len(ep["csel"]):
             cs, o1, o2 = ep["csel"], ep["c_o1"], ep["c_o2"]
@@ -358,6 +375,29 @@ def make_constraint(m: Model, d: Data, com: dict) -> Data:
              m.jnt_solref.to(dtype)[jids][None],
              m.jnt_solimp.to(dtype)[jids][None],
              dinv[lim["dadr"]][None], active, 2, margin=margin[None])
+
+    # ---------------- tendon limits ----------------
+    # the joint limits' nearer-side single-row scheme, with the tendon's
+    # moment row (MuJoCo mjCNSTR_LIMIT_TENDON)
+    if len(lay.tlim_tenid):
+        tids = lay.dev.tlim_tenid
+        length = d.ten_length[:, tids]
+        rng = m.ten_range.to(dtype)[tids]
+        margin = m.ten_margin.to(dtype)[tids]
+        dist_lo = length - rng[:, 0]
+        dist_hi = rng[:, 1] - length
+        lower = dist_lo < dist_hi
+        dist = torch.where(lower, dist_lo, dist_hi)
+        sign = torch.where(lower, 1.0, -1.0).to(dtype)
+        rows = sign[..., None] * d.ten_J[:, tids]
+        active = dist < margin
+        if disable & int(DisableBit.LIMIT):
+            active = torch.zeros_like(active)
+        emit(rows, dist - margin,
+             m.ten_solref.to(dtype)[tids][None],
+             m.ten_solimp.to(dtype)[tids][None],
+             m.ten_invweight0.to(dtype)[tids][None], active, 2,
+             margin=margin[None])
 
     # ---------------- contacts (vectorized over the K budget) ----
     if m.ncon_max:

@@ -6,8 +6,9 @@ Each primitive intersector works in the geom's LOCAL frame on a dense
 parameter, or +INF on a miss.  Geoms are grouped by STATIC type
 (`ray_all`), so the step never branches on data.  Convex meshes are
 intersected against their compile-time hull half-spaces (zero-padding
-rows are neutral: n=0, d=1e9).  Heightfields are not ported yet (ROADMAP
-§A.7) and raise.
+rows are neutral: n=0, d=1e9).  Heightfields are swept cell by cell with
+Moller-Trumbore over the grid's two triangles a cell, in chunks of rays
+so the (B, rays, R-1, C-1) temporaries stay bounded.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from mujoco_sim_tpu_torch.models.model import Model, Data, GeomType
+from mujoco_sim_tpu_torch.ops.math import cross
 
 INF = 1e30
 
@@ -142,9 +144,76 @@ def _hull(p, v, planes):
     return torch.where(ok, t, INF)
 
 
-def _hfield(*_):
-    raise NotImplementedError(
-        "heightfield rays are not ported yet (ROADMAP §A.7)")
+def hfield_tables_np(nrow, ncol, R_, C_) -> dict:
+    """Static tables of the heightfield sweep for grids of nrow x ncol
+    (n,) samples padded to R_ x C_: the counts as floats and which of the
+    (R_-1, C_-1) cells are real."""
+    nrow, ncol = np.asarray(nrow), np.asarray(ncol)
+    return dict(nr=nrow.astype(np.float64), nc=ncol.astype(np.float64),
+                cell_ok=((np.arange(C_ - 1) < ncol[:, None] - 1)[:, None, :]
+                         & (np.arange(R_ - 1) < nrow[:, None] - 1)[:, :,
+                                                                    None]))
+
+
+def _hfield(p, v, hfdata, hfsize, tab):
+    """ray vs the triangulated surface (two tris per cell, split along
+    the (low,low)->(high,high) diagonal, the narrowphase's convention).
+    p, v (B, R, n, 3) local rays; hfdata (n, R_, C_) padded heights;
+    hfsize (n, 4); tab: hfield_tables_np as tensors on the rays'
+    device."""
+    R_, C_ = hfdata.shape[-2:]
+    dev = p.device
+    rx = hfsize[..., 0]
+    ry = hfsize[..., 1]
+    zt = hfsize[..., 2]
+    nr, nc, cell_ok = tab["nr"], tab["nc"], tab["cell_ok"]
+    cw = 2.0 * rx / torch.clamp(nc - 1.0, min=1.0)     # cell extents
+    ch = 2.0 * ry / torch.clamp(nr - 1.0, min=1.0)
+    ii = torch.arange(C_ - 1, device=dev)
+    jj = torch.arange(R_ - 1, device=dev)
+    x0 = -rx[..., None] + ii * cw[..., None]           # (n, C_-1)
+    y0 = -ry[..., None] + jj * ch[..., None]           # (n, R_-1)
+    z = hfdata * zt[..., None, None]                   # (n, R_, C_)
+    z00 = z[..., :-1, :-1]
+    z10 = z[..., :-1, 1:]
+    z01 = z[..., 1:, :-1]
+    z11 = z[..., 1:, 1:]
+    xg = x0[..., None, :].expand(z00.shape)
+    yg = y0[..., :, None].expand(z00.shape)
+    cwb = cw[..., None, None]
+    chb = ch[..., None, None]
+    # lower tri: (x0,y0,z00) (x0+cw,y0,z10) (x0+cw,y0+ch,z11);
+    # upper tri: (x0,y0,z00) (x0+cw,y0+ch,z11) (x0,y0+ch,z01)
+    tris = [(xg, yg, z00, xg + cwb, yg, z10, xg + cwb, yg + chb, z11),
+            (xg, yg, z00, xg + cwb, yg + chb, z11, xg, yg + chb, z01)]
+
+    def tri_hit(pc, vc, ax, ay, az, bx, by, bz, cx, cy, cz):
+        # Moller-Trumbore on (n, R_-1, C_-1) grids vs rays (B, r, n)
+        e1 = torch.stack([bx - ax, by - ay, bz - az], -1)
+        e2 = torch.stack([cx - ax, cy - ay, cz - az], -1)
+        a3 = torch.stack([ax, ay, az], -1)
+        o = pc[..., None, None, :]
+        dvec = vc[..., None, None, :]
+        h = cross(dvec, e2)
+        det = (e1 * h).sum(-1)
+        safe = torch.where(det.abs() > 1e-15, det, 1.0)
+        s = o - a3
+        u = (s * h).sum(-1) / safe
+        q = cross(s, e1)
+        w = (dvec * q).sum(-1) / safe
+        t = (e2 * q).sum(-1) / safe
+        ok = ((det.abs() > 1e-15) & (u >= -1e-9) & (w >= -1e-9)
+              & (u + w <= 1.0 + 1e-9) & (t >= 0.0) & cell_ok)
+        return torch.where(ok, t, INF).amin((-1, -2))
+
+    # a ray at a time: each temporary is (B, 1, n, R-1, C-1) -- 1024 envs
+    # over a 64 x 64 grid is ~16 MB in f32
+    out = []
+    for r in range(p.shape[1]):
+        pc, vc = p[:, r:r + 1], v[:, r:r + 1]
+        out.append(torch.minimum(tri_hit(pc, vc, *tris[0]),
+                                 tri_hit(pc, vc, *tris[1])))
+    return torch.cat(out, dim=1)
 
 
 _PRIMITIVES = {
@@ -156,7 +225,8 @@ _PRIMITIVES = {
 
 def _ray_plan_np(m: Model, geom_mask: np.ndarray):
     """Per static geom type with any unmasked geom: (type, geom ids, their
-    hull ids, mask columns)."""
+    hull ids or, for heightfields, their hfield ids and sweep tables, mask
+    columns)."""
     lay = m.layout
     out = []
     for t in np.unique(lay.geom_type):
@@ -164,9 +234,15 @@ def _ray_plan_np(m: Model, geom_mask: np.ndarray):
         sub_mask = geom_mask[:, idx]
         if not sub_mask.any():
             continue
-        hull = (lay.geom_hullid[idx] if int(t) == int(GeomType.MESH)
-                else np.zeros(0, dtype=np.int64))
-        out.append((int(t), idx, hull, sub_mask))
+        if int(t) == int(GeomType.MESH):
+            table = lay.geom_hullid[idx]
+        elif int(t) == int(GeomType.HFIELD):
+            hid = lay.geom_hfieldid[idx]
+            table = dict(hid=hid, **hfield_tables_np(
+                lay.hf_nrow[hid], lay.hf_ncol[hid], *m.hfield_data.shape[1:]))
+        else:
+            table = np.zeros(0, dtype=np.int64)
+        out.append((int(t), idx, table, sub_mask))
     return out
 
 
@@ -184,14 +260,16 @@ def ray_all(m: Model, d: Data, pnt: torch.Tensor, vec: torch.Tensor,
                           lambda: _ray_plan_np(m, geom_mask), dtype)
     best = torch.full(pnt.shape[:2], INF, dtype=dtype, device=pnt.device)
     alive = d.body_active[:, m.layout.dev.geom_bodyid]     # (B, G)
-    for t, idx, hull, sub_mask in plan:
+    for t, idx, table, sub_mask in plan:
         p, v = _local(pnt, vec, d.geom_xpos[:, idx], d.geom_xmat[:, idx])
         if t in _PRIMITIVES:
             dist = _PRIMITIVES[t](p, v, d.geom_size[:, idx][:, None])
         elif t == int(GeomType.MESH):
-            dist = _hull(p, v, m.mesh_face_pad.to(dtype)[hull])
+            dist = _hull(p, v, m.mesh_face_pad.to(dtype)[table])
         elif t == int(GeomType.HFIELD):
-            dist = _hfield()
+            hid = table["hid"]
+            dist = _hfield(p, v, m.hfield_data.to(dtype)[hid],
+                           m.hfield_size.to(dtype)[hid], table)
         else:
             continue
         dist = torch.where(sub_mask & alive[:, idx][:, None], dist, INF)

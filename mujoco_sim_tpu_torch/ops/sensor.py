@@ -7,8 +7,7 @@ mj_rnePostConstraint-based sensordata.
 
 Sensor ids and addresses are Layout constants, so the loop over sensors
 unrolls into static column indices; the pieces are collected in address
-order and concatenated once into ``sensordata`` (B, nsensordata).  Tendon
-sensors are not ported yet (ROADMAP §A.7) and raise.
+order and concatenated once into ``sensordata`` (B, nsensordata).
 """
 
 from __future__ import annotations
@@ -20,10 +19,6 @@ from mujoco_sim_tpu_torch.models.model import (
     Model, Data, SensorType, ObjType, GeomType, ConeType, DisableBit,
     contact_rows_per)
 from mujoco_sim_tpu_torch.ops import math as mm
-
-_TENDON_TYPES = ("TENDONPOS", "TENDONVEL", "TENDONLIMITPOS",
-                 "TENDONLIMITVEL", "TENDONLIMITFRC")
-
 
 def _mtv(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """R^T v for R (..., 3, 3), v (..., 3)."""
@@ -192,10 +187,6 @@ def sensors(m: Model, d: Data) -> Data:
 
     origin = _com_dict(m, d)["origin"]                  # (B, nbody, 3)
     types = set(int(t) for t in lay.sensor_type)
-    for name in _TENDON_TYPES:
-        if int(getattr(S, name)) in types:
-            raise NotImplementedError(
-                "tendon sensors are not ported yet (ROADMAP §A.7)")
 
     # subtree momentum balance: only for force/torque sensors
     if types & {int(S.FORCE), int(S.TORQUE)}:
@@ -288,6 +279,10 @@ def sensors(m: Model, d: Data) -> Data:
         elif st == int(S.BALLANGVEL):
             a = int(lay.jnt_dofadr[obj])
             val = d.qvel[:, a:a + 3]
+        elif st == int(S.TENDONPOS):
+            val = d.ten_length[:, obj][:, None]
+        elif st == int(S.TENDONVEL):
+            val = d.ten_velocity[:, obj][:, None]
         elif st == int(S.ACTUATORPOS):
             val = d.actuator_length[:, obj][:, None]
         elif st == int(S.ACTUATORVEL):
@@ -320,6 +315,30 @@ def sensors(m: Model, d: Data) -> Data:
                 pos_in_list = np.nonzero(lay.lim_jntid == obj)[0]
                 v_ = (d.efc_force[:, int(lay.lim_efcadr[pos_in_list[0]])]
                       if len(pos_in_list) else torch.zeros_like(q))
+            val = torch.where(active, v_, 0.0)[:, None]
+        elif st in (int(S.TENDONLIMITPOS), int(S.TENDONLIMITVEL),
+                    int(S.TENDONLIMITFRC)):
+            # the tendon's limit efc row when active, else 0
+            rng = m.ten_range.to(dtype)[obj]
+            margin = m.ten_margin.to(dtype)[obj]
+            length = d.ten_length[:, obj]
+            dist_lo = length - rng[0]
+            dist_hi = rng[1] - length
+            lower = dist_lo < dist_hi
+            dist = torch.where(lower, dist_lo, dist_hi)
+            sign = torch.where(lower, 1.0, -1.0).to(dtype)
+            limit_on = not (m.opt.disableflags & int(DisableBit.LIMIT))
+            active = dist < margin
+            if not (bool(lay.ten_limited[obj]) and limit_on):
+                active = torch.zeros_like(active)
+            if st == int(S.TENDONLIMITPOS):
+                v_ = dist - margin
+            elif st == int(S.TENDONLIMITVEL):
+                v_ = sign * d.ten_velocity[:, obj]
+            else:
+                pos_in_list = np.nonzero(lay.tlim_tenid == obj)[0]
+                v_ = (d.efc_force[:, int(lay.tlim_efcadr[pos_in_list[0]])]
+                      if len(pos_in_list) else torch.zeros_like(length))
             val = torch.where(active, v_, 0.0)[:, None]
         elif st == int(S.MAGNETOMETER):
             val = _mtv(d.site_xmat[:, obj], m.opt.magnetic.to(dtype))

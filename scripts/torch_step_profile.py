@@ -1,12 +1,14 @@
 """Where one step of the PyTorch/CUDA port spends its time, on the card.
 
-    PYTHONPATH=. python3 scripts/torch_step_profile.py [manip|box|precise|bighull] [nenv]
+    PYTHONPATH=. python3 scripts/torch_step_profile.py [manip|box|precise|bighull|terrain] [nenv]
 
 Runs `warm` stirred steps of the scene (default manip_bin6.xml @1024,
 float32; ``precise`` is manip_bin6_precise.xml @1024: elliptic cone, noslip,
 sensors; ``bighull`` is manip_bin6_bighull.xml @1024: two objects with
-256- and 320-vertex hulls) to reach a state in contact, then measures, on
-that state:
+256- and 320-vertex hulls; ``terrain`` is tendon_terrain.xml @1024: a
+muscle arm on spatial tendons and six objects on a heightfield, stirred
+inside each actuator's ctrlrange) to reach a state in contact, then
+measures, on that state:
 
 * the host wall time of a plain step (median of 20, each ended by a
   synchronize);
@@ -47,6 +49,7 @@ from mujoco_sim_tpu_torch.ops import (chol, chol_factor, collision,  # noqa: E40
 SCENES = {"manip": ("manip_bin6.xml", 1024, 150),
           "precise": ("manip_bin6_precise.xml", 1024, 150),
           "bighull": ("manip_bin6_bighull.xml", 1024, 150),
+          "terrain": ("tendon_terrain.xml", 1024, 220),
           "box": ("floor_box.xml", 4096, 300)}
 
 
@@ -78,8 +81,14 @@ def main():
     phase = torch.tensor(np.random.default_rng(1).uniform(
         0.0, 6.28, (nenv, m.nu)), dtype=m.dtype, device=m.device)
 
+    cr = m.actuator_ctrlrange
+
     def stir(d_):
-        return torch.sin(4.0 * d_.time[:, None] + phase)
+        s_ = torch.sin(4.0 * d_.time[:, None] + phase)
+        if scene == "terrain":
+            # inside each actuator's ctrlrange (muscles: 0.5 + 0.5 sin)
+            return cr[:, 0] + (cr[:, 1] - cr[:, 0]) * (0.5 + 0.5 * s_)
+        return s_
 
     ctrl_fn = stir if m.nu else None
     d = mst.rollout(m, d, warm, ctrl_fn=ctrl_fn)
@@ -103,6 +112,8 @@ def main():
         return out
 
     kin = stage("kinematics_com_crb", lambda: _position_head(m, d))
+    if m.ntendon:
+        kin = (stage("tendon", lambda: engine._tendon(m, kin[0])), kin[1])
     dpos = stage("collision", lambda: collision.collision(m, kin[0]))
     dcon = stage("make_constraint",
                  lambda: constraint.make_constraint(m, dpos, kin[1]))

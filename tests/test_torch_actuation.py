@@ -4,8 +4,9 @@ JAX package, f64, 1e-10: same formulas, summation order aside.
 
 Models are in-file XML strings covering motor, position, velocity, damper,
 integrator, filter, filterexact and muscle actuators, ctrl / force / act
-clamps, and ball and free joint transmissions.  Site and tendon
-transmissions are not ported and must raise.
+clamps, ball and free joint transmissions, and one site and one tendon
+transmission (tests/test_torch_site_tendon_actuation.py holds those in
+depth).
 """
 
 import jax
@@ -177,13 +178,35 @@ def test_load_model_of_the_port_compiles_actuators():
 
 
 @pytest.mark.parametrize("kind", ["site", "tendon"])
-def test_site_and_tendon_transmissions_raise(kind):
+def test_site_and_tendon_transmissions_match_jax(kind):
+    """A site and a tendon transmission on the arm: the port's own
+    compile + set_const give the JAX package's acc0, and forward() its
+    actuator state and forces."""
     if kind == "site":
-        extra, act = "", '<general name="s" site="tip" gear="1 0 0 0 0 0"/>'
+        extra, act = "", ('<general name="s" site="tip" '
+                          'gear="1 0 0 0 0 0"/>')
     else:
         extra = ('<tendon><fixed name="t1"><joint joint="j1" coef="1"/>'
                  '<joint joint="j2" coef="-1"/></fixed></tendon>')
         act = '<motor name="t" tendon="t1"/>'
-    spec = parse_mjcf_string(ARM.format(extra=extra, actuators=act))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.set_const(compile_spec(spec))
+    xml = ARM.format(extra=extra, actuators=act)
+    mj = jengine.set_const(jax_compile(jax_parse(xml)))
+    ours = engine.set_const(compile_spec(parse_mjcf_string(xml)))
+    np.testing.assert_allclose(ours.actuator_acc0,
+                               np.asarray(mj.actuator_acc0), rtol=0,
+                               atol=1e-12)
+    mt = engine.put_model(from_jax_model(mj), torch.float64, "cpu")
+    rng = np.random.default_rng(4)
+    dj = make_batch(mj, NENV, dtype=jnp.float64)
+    dj = dj.replace(
+        qpos=jnp.asarray(np.array(dj.qpos)
+                         + rng.uniform(-0.3, 0.3, dj.qpos.shape)),
+        qvel=jnp.asarray(rng.uniform(-1.0, 1.0, dj.qvel.shape)),
+        ctrl=jnp.asarray(rng.uniform(-1.5, 1.5, dj.ctrl.shape)))
+    ref = jax.jit(jax.vmap(jengine.forward, in_axes=(None, 0)))(mj, dj)
+    out = engine.forward(mt, from_jax_data(dj))
+    for name in ACT_FIELDS:
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=1e-10, atol=TOL, err_msg=name)
+    assert float(out.qfrc_actuator.abs().max()) > 0

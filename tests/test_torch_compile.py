@@ -28,7 +28,7 @@ FIXTURES = ["floor_box.xml", "stack.xml", "arm.xml", "capsule_drop.xml",
 # actuator layout must cross too
 MESH_FIXTURES = ["manip_bin6.xml", "mesh_stack.xml", "cyl_stack.xml",
                  "sphere_on_cube.xml", "box_on_cube.xml",
-                 "manip_bin6_bighull.xml"]
+                 "manip_bin6_bighull.xml", "tendon_terrain.xml"]
 NAME_FIELDS = ("body", "joint", "geom", "site", "mesh", "sensor", "eq",
                "actuator", "tendon", "key")
 

@@ -563,3 +563,58 @@ def test_integrators_on_card(integrator, cuda_device):
     d = mst.rollout(m, d.replace(qpos=qpos), 20)
     assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
     assert float(d.qvel.abs().max()) < 0.5 and int(d.ncon.min()) > 0
+
+
+# ------------------------------------------------ tendons, terrain, control
+
+@pytest.mark.cuda
+def test_terrain_rollout_on_card_runs_the_kernels(cuda_device):
+    """20 stirred steps of tendon_terrain at 64 envs, f32 on the card
+    (tendons with wraps, site and tendon transmissions, heightfield
+    contacts, fluid drag): the Cholesky solve, both hull queries and the
+    exact-MTV query launch, nothing goes non-finite, the muscles'
+    activations stay in [0, 1]."""
+    m = mst.put_model(mst.load_model(str(FIXTURES / "tendon_terrain.xml")))
+    assert m.ntendon == 7 and m.opt.has_fluid
+    d = mst.make_data(m, 64)
+    phase = torch.tensor(np.random.default_rng(1).uniform(0, 6.28, (64, m.nu)),
+                         dtype=torch.float32, device=cuda_device)
+    cr = m.actuator_ctrlrange
+    before = hull_sat.LAUNCHES, mtv_query.LAUNCHES, chol.LAUNCHES
+    d = mst.rollout(m, d, 20, ctrl_fn=lambda d_: cr[:, 0] + (
+        cr[:, 1] - cr[:, 0]) * (0.5 + 0.5 * torch.sin(
+            4.0 * d_.time[:, None] + phase)))
+    torch.cuda.synchronize()
+    assert hull_sat.LAUNCHES - before[0] > 0
+    assert mtv_query.LAUNCHES - before[1] == 20
+    assert chol.LAUNCHES - before[2] > 2 * 20
+    for v in (d.qpos, d.qvel, d.ten_length, d.ten_J, d.sensordata):
+        assert bool(torch.isfinite(v).all())
+    act = d.act[:, :6]
+    assert bool(((act >= 0) & (act <= 1)).all())
+
+
+@pytest.mark.cuda
+def test_control_on_card(cuda_device):
+    """step1 -> pd_accel -> apply_control -> step2 on the card; the
+    effort hw_interface.read reports is the inverse dynamics at the
+    solved state."""
+    from mujoco_sim_tpu_torch.control import controllers as C
+    from mujoco_sim_tpu_torch.control import hw_interface as HW
+    m = mst.put_model(mst.load_model(str(FIXTURES / "arm.xml")))
+    cfg = C.pd_config_for_joints(m, ["shoulder", "elbow"], kp=200.0,
+                                 kd=30.0)
+    d, st = mst.make_data(m, 64), C.make_pd_state(m, 64)
+    des = torch.tensor([0.7, -0.4], device=cuda_device).expand(64, 2)
+
+    def ctrl(m_, d_, st_):
+        st2 = C.pd_accel(cfg, st_, d_, des, m_.opt.timestep)
+        return C.apply_control(m_, d_, st2, cfg.ctrl_mask)
+
+    for _ in range(1500):
+        d, st = mst.step_with_control(m, d, ctrl, st)
+    torch.testing.assert_close(d.qpos, des, rtol=0, atol=5e-3)
+    d = mst.forward(m, d)
+    _, _, eff = HW.read(m, d, np.arange(m.nv))
+    torch.testing.assert_close(eff, mst.inverse(m, d, d.qacc), rtol=1e-4,
+                               atol=1e-4)

@@ -1,10 +1,11 @@
 """Port parity of the equality rows (ops/constraint.py: joint polycoef,
-connect, weld; the row permutation) with the JAX package (CPU, f64): the
-efc rows after fwd_position, then a rollout.  On tests/fixtures/
-efc_scene.xml (a joint couple beside friction-loss, limit and contact
-rows) and on a scene written here that interleaves a weld, a connect and a
-joint couple, so the [JOINT | CONNECT | WELD] block order has to be
-permuted back into address order.
+connect, weld, tendon polycoef; the row permutation) with the JAX package
+(CPU, f64): the efc rows after fwd_position, then a rollout.  On
+tests/fixtures/efc_scene.xml (a joint couple beside friction-loss, limit
+and contact rows), on a scene written here that interleaves a weld, a
+connect and a joint couple, so the [JOINT | CONNECT | WELD] block order
+has to be permuted back into address order, and on tests/test_tendons.py's
+tendon-equality arm.
 
 Tolerances: rows 1e-12 (same arithmetic); rollouts 1e-6 (40 steps through
 the Newton solver, whose stopping rule flips on the last bit).
@@ -19,7 +20,9 @@ import pytest
 import torch
 
 from mujoco_sim_tpu import engine as jengine
+from mujoco_sim_tpu.models.compile import compile_spec as jax_compile
 from mujoco_sim_tpu.models.compile import load_model as jax_load_model
+from mujoco_sim_tpu.models.mjcf import parse_mjcf_string as jax_parse
 from mujoco_sim_tpu.parallel import mesh as jmesh
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
@@ -123,13 +126,29 @@ def test_rollout_matches_jax(scene):
                                rtol=0, atol=1e-5)
 
 
-def test_tendon_equality_still_raises():
-    """Tendon couples wait for the tendon port (ROADMAP A.7)."""
-    from mujoco_sim_tpu_torch.models.model import EqType
-    mj = jax_load_model(str(FIXTURES / "efc_scene.xml"))
-    host = from_jax_model(mj)
-    host.layout._arrays["eq_type"] = np.full_like(
-        host.layout.eq_type, int(EqType.TENDON))
-    mt = engine.put_model(host, torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        engine.fwd_position(mt, engine.make_data(mt, 1))
+def test_tendon_equality_rows_match_jax():
+    """Tendon couples (L1 - L1_0) = poly(L2 - L2_0): the efc rows after
+    fwd_position and a 40-step rollout, on tests/test_tendons.py's
+    tendon-equality arm."""
+    from tests.test_torch_tendons import TEN_EQ
+    mj = jengine.set_const(jax_compile(jax_parse(TEN_EQ)))
+    mt = engine.put_model(from_jax_model(mj), torch.float64, "cpu")
+    rng = np.random.default_rng(2)
+    dj = jmesh.make_batch(mj, NENV, dtype=jnp.float64)
+    dj = dj.replace(
+        qpos=jnp.asarray(rng.uniform(-0.3, 0.3, (NENV, mj.nq))),
+        qvel=jnp.asarray(rng.uniform(-0.5, 0.5, (NENV, mj.nv))))
+    ref = jax.jit(jax.vmap(jengine.forward, in_axes=(None, 0)))(mj, dj)
+    out = engine.forward(mt, from_jax_data(dj))
+    assert np.asarray(ref.efc_active).any()
+    for f in ("efc_J", "efc_R", "efc_D", "efc_aref"):
+        np.testing.assert_allclose(getattr(out, f).numpy(),
+                                   np.asarray(getattr(ref, f)), rtol=1e-12,
+                                   atol=1e-12, err_msg=f)
+    np.testing.assert_array_equal(out.efc_active.numpy(),
+                                  np.asarray(ref.efc_active))
+    n = 40
+    ref = jax.jit(jmesh.rollout, static_argnums=2)(mj, dj, n)
+    out = rollout(mt, from_jax_data(dj), n)
+    np.testing.assert_allclose(out.qpos.numpy(), np.asarray(ref.qpos),
+                               rtol=0, atol=1e-6)

@@ -13,7 +13,9 @@ wrist force of 3.4 N).  Scenes: the three force/torque
 fixtures, the precise manip fixture (31 values), and a zoo scene written
 here that holds every sensor type the slice ports, with contacts on a
 touch pad of each site shape, a joint at its limit, frame sensors against
-a moving reference frame, and cutoffs.  One parametrised case per (scene,
+a moving reference frame, and cutoffs, and a second scene written here
+with fixed tendons (one at its limit) and rangefinders over two
+heightfields of different grid sizes.  One parametrised case per (scene,
 sensor type).  The ray casts are compared per geom type.
 """
 
@@ -120,6 +122,65 @@ ZOO = """
 </mujoco>
 """
 
+# a 9 x 9 bowl and a 3 x 4 ramp (tests/test_hfield.py's grids), a ball
+# in the bowl, and a fixed-tendon arm above it with rangefinders
+_BOWL = " ".join(f"{v:.6f}" for v in (
+    (np.linspace(-1, 1, 9)[None, :] ** 2
+     + np.linspace(-1, 1, 9)[:, None] ** 2) / 2.0).ravel())
+TENDON_HF = f"""
+<mujoco>
+  <compiler angle="radian"/>
+  <option timestep="0.004"/>
+  <asset>
+    <hfield name="bowl" nrow="9" ncol="9" size="1.5 1.5 0.4 0.1"
+            elevation="{_BOWL}"/>
+    <hfield name="ramp" nrow="3" ncol="4" size="0.6 0.5 0.3 0.1"
+            elevation="{' '.join(str(v) for v in [0, 0.2, 0.5, 1.0] * 3)}"/>
+  </asset>
+  <worldbody>
+    <geom name="bowl" type="hfield" hfield="bowl"/>
+    <geom name="ramp" type="hfield" hfield="ramp" pos="2.5 0 0.1"
+          euler="0 0 0.4"/>
+    <body name="ball" pos="0.3 0.2 0.6"><freejoint/>
+      <geom type="sphere" size="0.08"/></body>
+    <body pos="-0.5 0 1.0">
+      <joint name="j1" type="hinge" axis="0 1 0" damping="0.1"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0" mass="1"/>
+      <site name="eye1" pos="0.2 0 0" quat="0 1 0 0"/>
+      <body pos="0.3 0 0">
+        <joint name="j2" type="hinge" axis="0 1 0" damping="0.05"/>
+        <geom type="capsule" size="0.02" fromto="0 0 0 0.25 0 0"
+              mass="0.4"/>
+        <site name="eye2" pos="0.25 0 0" quat="0 1 0 0"/>
+        <body pos="0.25 0 0">
+          <joint name="j3" type="slide" axis="1 0 0" damping="0.2"/>
+          <geom type="sphere" size="0.03" mass="0.2"/>
+        </body>
+      </body>
+    </body>
+    <site name="eye_ramp" pos="2.45 0.1 1" quat="0 1 0 0"/>
+  </worldbody>
+  <tendon>
+    <fixed name="t1" stiffness="25" damping="1.5" springlength="0.05">
+      <joint joint="j1" coef="1.0"/><joint joint="j2" coef="-0.7"/>
+    </fixed>
+    <fixed name="t2" limited="true" range="-0.15 0" solreflimit="0.01 1">
+      <joint joint="j2" coef="0.5"/><joint joint="j3" coef="2.0"/>
+    </fixed>
+  </tendon>
+  <actuator><general name="at" tendon="t1" gear="1.7" gainprm="3.0"/>
+  </actuator>
+  <sensor>
+    <tendonpos tendon="t1"/><tendonpos tendon="t2"/>
+    <tendonvel tendon="t1"/><tendonvel tendon="t2"/>
+    <tendonlimitpos tendon="t2"/><tendonlimitvel tendon="t2"/>
+    <tendonlimitfrc tendon="t2"/><actuatorfrc actuator="at"/>
+    <rangefinder site="eye1"/><rangefinder site="eye2"/>
+    <rangefinder site="eye_ramp"/>
+  </sensor>
+</mujoco>
+"""
+
 S = SensorType
 # (scene, sensor type) cases; the scene's sensors are listed here so the
 # parametrisation needs no model at import time
@@ -139,8 +200,13 @@ SCENE_TYPES = {
         S.RANGEFINDER, S.FRAMEPOS, S.FRAMEQUAT, S.FRAMEXAXIS, S.FRAMEYAXIS,
         S.FRAMEZAXIS, S.FRAMELINVEL, S.FRAMEANGVEL, S.SUBTREECOM,
         S.SUBTREELINVEL, S.SUBTREEANGMOM],
+    "tendon_hf": [
+        S.TENDONPOS, S.TENDONVEL, S.TENDONLIMITPOS, S.TENDONLIMITVEL,
+        S.TENDONLIMITFRC, S.ACTUATORFRC, S.RANGEFINDER],
 }
-SOLVED = {S.FORCE, S.TORQUE, S.TOUCH, S.ACCELEROMETER, S.JOINTLIMITFRC}
+SOLVED = {S.FORCE, S.TORQUE, S.TOUCH, S.ACCELEROMETER, S.JOINTLIMITFRC,
+          S.TENDONLIMITFRC}
+INLINE = {"zoo": ZOO, "tendon_hf": TENDON_HF}
 CASES = [(scene, t) for scene, types in SCENE_TYPES.items() for t in types]
 _CACHE = {}
 
@@ -150,9 +216,9 @@ def _scene(name, tmp_path_factory):
     steps, and both packages' forward() of that state."""
     if name in _CACHE:
         return _CACHE[name]
-    if name == "zoo":
-        path = tmp_path_factory.mktemp("zoo") / "zoo.xml"
-        path.write_text(ZOO)
+    if name in INLINE:
+        path = tmp_path_factory.mktemp(name) / f"{name}.xml"
+        path.write_text(INLINE[name])
     else:
         path = FIXTURES / name
     mj = jax_load_model(str(path))
@@ -214,26 +280,36 @@ def test_zoo_readings_are_not_trivial(tmp_path_factory):
     assert (np.abs(of(S.FORCE)[0]) > 0.1).any()       # the wrist's load
 
 
-def test_tendon_sensor_still_raises(tmp_path_factory):
-    """Tendon sensors wait for the tendon port (ROADMAP A.7)."""
-    mj, _, dj, _, _ = _scene("force_sensor_srv.xml", tmp_path_factory)
-    host = from_jax_model(mj)
-    host.layout._arrays["sensor_type"] = np.full_like(
-        host.layout.sensor_type, int(S.TENDONPOS))
-    mt = engine.put_model(host, torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        engine.forward(mt, from_jax_data(dj))
+def test_tendon_sensors_match_jax(tmp_path_factory):
+    """Every tendon sensor of the tendon scene, with the limited tendon
+    at its limit in some env, where the limit sensors read the efc row."""
+    mj, _, _, ref, out = _scene("tendon_hf", tmp_path_factory)
+    lay = mj.layout
+    types = {int(t) for t in (S.TENDONPOS, S.TENDONVEL, S.TENDONLIMITPOS,
+                              S.TENDONLIMITVEL, S.TENDONLIMITFRC)}
+    cols = [int(lay.sensor_adr[k]) for k in range(mj.nsensor)
+            if int(lay.sensor_type[k]) in types]
+    assert len(cols) == 7
+    np.testing.assert_allclose(out.sensordata.numpy()[:, cols],
+                               np.asarray(ref.sensordata)[:, cols], rtol=0,
+                               atol=1e-6)
+    lim = int(lay.sensor_adr[list(lay.sensor_type).index(
+        int(S.TENDONLIMITPOS))])
+    assert (np.asarray(ref.sensordata)[:, lim] < 0).any()
 
 
 GEOMS = [GeomType.PLANE, GeomType.SPHERE, GeomType.CAPSULE,
-         GeomType.CYLINDER, GeomType.ELLIPSOID, GeomType.BOX, GeomType.MESH]
+         GeomType.CYLINDER, GeomType.ELLIPSOID, GeomType.BOX, GeomType.MESH,
+         GeomType.HFIELD]
 
 
 @pytest.mark.parametrize("gtype", GEOMS, ids=[g.name for g in GEOMS])
 def test_ray_all_matches_jax_per_geom_type(gtype, tmp_path_factory):
     """Seeded rays from above and from the side against the geoms of one
-    type only (the static mask selects them)."""
-    mj, mt, _, ref, out = _scene("zoo", tmp_path_factory)
+    type only (the static mask selects them); heightfields in the tendon
+    scene, every other type in the zoo."""
+    scene = "tendon_hf" if gtype == GeomType.HFIELD else "zoo"
+    mj, mt, _, ref, out = _scene(scene, tmp_path_factory)
     rng = np.random.default_rng(int(gtype))
     R = 40
     sel = np.asarray(mj.layout.geom_type) == int(gtype)
@@ -257,6 +333,29 @@ def test_ray_all_matches_jax_per_geom_type(gtype, tmp_path_factory):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
 
 
-def test_hfield_rays_still_raise():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        raycast._hfield()
+def test_hfield_rays_match_jax():
+    """The heightfield sweep alone, against the JAX package's: seeded
+    local rays over two padded grids (9 x 9 and 3 x 4), several rays an
+    env so the sweep runs more than one chunk."""
+    rng = np.random.default_rng(9)
+    nrow, ncol = np.array([9, 3]), np.array([9, 4])
+    data = np.zeros((2, 9, 9))
+    data[0] = rng.uniform(0, 1, (9, 9))
+    data[1, :3, :4] = rng.uniform(0, 1, (3, 4))
+    size = np.array([[1.5, 1.5, 0.4, 0.1], [0.6, 0.5, 0.3, 0.1]])
+    B, R = 3, 5
+    p = rng.uniform(-1.0, 1.0, (B, R, 2, 3))
+    p[..., 2] = rng.uniform(0.5, 1.0, (B, R, 2))
+    v = rng.normal(size=(B, R, 2, 3))
+    v[..., 2] = -np.abs(v[..., 2]) - 0.5
+    v[:, 0] = [0.0, 0.0, -1.0]
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    want = np.stack([np.asarray(jraycast._hfield(
+        jnp.asarray(p[b]), jnp.asarray(v[b]), jnp.asarray(data), nrow, ncol,
+        jnp.asarray(size))) for b in range(B)])
+    tab = {k: torch.tensor(x) for k, x in
+           raycast.hfield_tables_np(nrow, ncol, 9, 9).items()}
+    got = raycast._hfield(torch.tensor(p), torch.tensor(v),
+                          torch.tensor(data), torch.tensor(size), tab)
+    assert (want < raycast.INF / 2).sum() >= 10
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
