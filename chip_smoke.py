@@ -15,8 +15,15 @@ six loose objects on a 64 x 64 heightfield in air with wind at 1024 envs
 tendon transmissions, fluid drag, tendon sensors, a heightfield ray;
 its kernels held to their twins at the inputs its step gave them, and
 the exact query driven on live lanes by a pass with the rock set into
-the cylinder), and the manipulation arm under the computed-torque controller at 1024 envs
-(step1 -> pd_accel -> apply_control -> step2).  Builds
+the cylinder), the manipulation arm under the computed-torque controller at 1024 envs
+(step1 -> pd_accel -> apply_control -> step2), and the runtime on the
+in-repo world (tests/fixtures/world_empty.xml): the spawn scene of four
+balls at 4096 envs with the batch services (health, auto_reset,
+checkpoint, masks flipped mid-rollout), the TCP server at one env on the
+RK4 world driven by the port's client (spawn, stream, destroy, reset,
+screenshot, a hot swap by mesh path, cmd_vel on a second server), each
+of the two with its kernels held to their twins at the inputs it gave
+them, and the paced SimLoop.  Builds
 the six hand-written kernels from the checkout's own sources, holds each
 against its plain PyTorch twin, and checks the results.  Run from the root
 of a checkout, with one card:
@@ -31,8 +38,8 @@ record (JSON); the last line is
 
 ``python3 chip_smoke.py build kernels`` runs only the named phases (of
 env, build, kernels, box, pile, manip, precise, bighull, terrain,
-control) and prints no final record:
-a quick check of the kernels alone.
+control, runtime) and prints no final record: a quick check of the
+kernels alone; ``build runtime`` is the quick check of the runtime.
 """
 
 from __future__ import annotations
@@ -56,6 +63,10 @@ PRECISE = os.path.join(ROOT, "tests", "fixtures", "manip_bin6_precise.xml")
 PILE = os.path.join(ROOT, "tests", "fixtures", "box_pile11.xml")
 BIGHULL = os.path.join(ROOT, "tests", "fixtures", "manip_bin6_bighull.xml")
 TERRAIN = os.path.join(ROOT, "tests", "fixtures", "tendon_terrain.xml")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+WORLD = os.path.join(FIXTURES, "world_empty.xml")
+BALL = os.path.join(FIXTURES, "spawn_ball.xml")
+BENCHBOT = os.path.join(FIXTURES, "benchbot.xml")
 NENV = 4096
 MANIP_NENV = 1024
 # chol_solve vs plain twin: |x_kernel - x_plain| <= ATOL + RTOL |x_plain|
@@ -125,6 +136,14 @@ CONTROL_EFFORT_RTOL = 1e-4
 # largest magnitude within that sensor's own reading (a 3-vector whose one
 # component passes through zero is held to the vector's scale)
 SENSOR_RTOL = 1e-3
+# runtime: a ball of radius 0.1 at rest on the floor, to 2 cm (the JAX
+# package's spawn test, tests/test_spawn.py:53); 64 seeded envs poisoned
+# for auto_reset; the server's wall deadlines; the odom twist against the
+# command it was given, in f32 (the arm's reaction moves it by ~1e-6)
+BALL_REST_Z, BALL_REST_TOL = 0.1, 0.02
+POISONED = 64
+SERVER_DEADLINE = 60.0
+ODOM_TOL = 1e-4
 # the twins materialise an (instances, axes, vertices) product: they run
 # over slices of the instances that keep it near 2^28 floats (1 GiB)
 PLAIN_SLICE_ELEMS = 1 << 28
@@ -269,11 +288,14 @@ def compare_chol_step(A, b, what):
         return float((r / (eps * den.clamp(min=tiny))).max())
 
     scale = x64.abs().amax(-1).clamp(min=tiny)
-    fwd = float(((x.double() - x64).abs().amax(-1) / scale).max())
-    fwd_plain = float(((xp.double() - x64).abs().amax(-1) / scale).max())
+    fwd_each = (x.double() - x64).abs().amax(-1) / scale
+    fwd_plain_each = (xp.double() - x64).abs().amax(-1) / scale
+    fwd, fwd_plain = float(fwd_each.max()), float(fwd_plain_each.max())
     ev = torch.linalg.eigvalsh(A64)
     out = dict(bwd_ratio=bwd(x), bwd_ratio_plain=bwd(xp), fwd_rel=fwd,
-               fwd_rel_plain=fwd_plain,
+               fwd_rel_plain=fwd_plain, systems=fwd_each.numel(),
+               fwd_rel_median=float(fwd_each.median()),
+               fwd_rel_plain_median=float(fwd_plain_each.median()),
                max_abs_err=float((x - xp).abs().max()),
                systems_outside_random_band=int(
                    ((x - xp).abs() > ATOL + RTOL * xp.abs()).any(-1).sum()),
@@ -283,7 +305,8 @@ def compare_chol_step(A, b, what):
                              f"{out['bwd_ratio']} eps > {CHOL_BWD_RATIO}")
     if fwd > CHOL_FWD_FACTOR * max(fwd_plain, eps):
         raise AssertionError(f"chol_solve {what}: forward error {fwd} of "
-                             f"the largest |x|, plain twin {fwd_plain}")
+                             f"the largest |x|, plain twin {fwd_plain} "
+                             f"({out})")
     return out
 
 
@@ -294,6 +317,9 @@ def chol_vs_plain():
     cases = [(n, N, False) for n in (6, 12, 42, 49) for N in (130, NENV)]
     cases.append((12, 130, True))         # stiff rows, as test_pallas_chol
     cases.append((38, MANIP_NENV, False))  # the terrain step's solves
+    # the spawn scene's solves, and the server's at one env before and
+    # after the cube's hot swap
+    cases += [(24, NENV, False), (24, 1, False), (36, 1, False)]
     # both sides of every size class at a batch of 37, a stiff row at
     # n = 33, a pivot at the 1e-30 floor (utils/kernel_cases.py)
     cases += [(name, None, name == "stiff_n33")
@@ -1505,7 +1531,9 @@ def precise_main_path(card):
     m = mst.put_model(mst.load_model(PRECISE))   # float32, on the card
     d0 = mst.make_data(m, MANIP_NENV)
     stir = _stir(MANIP_NENV, m.nu, m.device, m.dtype)
-    nsteps = 200
+    # 100 timed steps (200 before the runtime phase was added): the script
+    # stays inside its time
+    nsteps = 100
 
     # warm-up rollout: short (plans, allocator); the timed rollout starts
     # from the same state and repeats its first steps bit for bit
@@ -1575,7 +1603,7 @@ def precise_main_path(card):
 
     phase("precise_main_path", scene="manip_bin6_precise.xml",
           nenv=MANIP_NENV, steps=nsteps,
-          timed="1 rollout of 200 steps after a 20-step warm-up",
+          timed=f"1 rollout of {nsteps} steps after a 20-step warm-up",
           launches=counts,
           launches_per_step={k: v / nsteps for k, v in counts.items()},
           finite=True, objects_in_bin=True,
@@ -1790,6 +1818,55 @@ def terrain_deep_pass(m, d_end, nsteps=5):
     return counts, probe
 
 
+def hold_captures(chol_calls, sat_calls, what):
+    """The chol_solve and face-SAT inputs a _Probe captured (its ``chol``
+    and ``sat`` lists), each held to its twin at the path's own shapes
+    (compare_chol_step, compare_hull_sat; one env's solves pooled, see
+    below).  Returns the solves' worst measures, the SAT's max abs err
+    and accepted near-ties, and the shapes."""
+    from mujoco_sim_tpu_torch.ops import chol
+    if not chol_calls:
+        raise AssertionError(f"{what}: no chol_solve input captured")
+    solves, singles = {}, {}
+
+    def hold(A, b, label):
+        r = compare_chol_step(A, b, f"{what} {label}")
+        for k, v in r.items():
+            solves[k] = max(solves.get(k, v), v)
+
+    for A, b in chol_calls:
+        if A.shape[0] == 1:
+            singles.setdefault(A.shape[-1], []).append((A, b))
+        else:
+            hold(A, b, f"capture {tuple(A.shape)}")
+    for n, pairs in singles.items():
+        # one env's solves: the forward-error criterion on one system
+        # compares two single samples, so its captured systems are pooled
+        # into one batch and held there, as a batched path's are; each
+        # launch at N = 1 gives its system's row of the pooled launch bit
+        # for bit (a system's work depends on n alone)
+        A = torch.cat([a for a, _ in pairs])
+        b = torch.cat([x for _, x in pairs])
+        one = torch.cat([chol.chol_solve_cuda(a, x) for a, x in pairs])
+        if not torch.equal(one, chol.chol_solve_cuda(A, b)):
+            raise AssertionError(f"chol_solve {what}: a one-env launch of "
+                                 f"n = {n} differs from its pooled row")
+        hold(A, b, f"{len(pairs)} one-env captures of n = {n}")
+    sat_err, ties = 0.0, 0
+    for pts, planes, k, mask, lateral, slack in sat_calls:
+        e, t = compare_hull_sat(pts, planes, k, mask, lateral, slack,
+                                f"{what} capture {tuple(pts.shape)}")
+        sat_err, ties = max(sat_err, e), ties + t
+    return dict(
+        captured_chol_calls=len(chol_calls),
+        chol_shapes=sorted({tuple(A.shape) for A, _ in chol_calls}),
+        chol_solve_vs_f64=dict(solves, bwd_ratio_limit=CHOL_BWD_RATIO,
+                               fwd_factor_limit=CHOL_FWD_FACTOR),
+        captured_sat_calls=len(sat_calls),
+        sat_shapes=sorted({tuple(c[0].shape) for c in sat_calls}),
+        sat_max_abs_err=sat_err, sat_accepted_near_ties=ties)
+
+
 def terrain_kernels(probe, deep):
     """The terrain step's kernels at the inputs it gave them: the SPD
     solves and the face SAT of the main path's captured steps, the face
@@ -1797,20 +1874,10 @@ def terrain_kernels(probe, deep):
     its twin; the query timed at the deep pass's capture beside its twin
     and the bound of the work these inputs need."""
     from mujoco_sim_tpu_torch.ops import mtv_query
-    err = dict(hull_ref_face_depth=0.0, mtv_query=0.0)
-    ties = dict(hull_ref_face_depth=0, mtv_query=0, mtv_staged=0)
-    solves = {}
-    for A, b in probe.chol:
-        r = compare_chol_step(A, b, f"terrain capture {tuple(A.shape)}")
-        for k, v in r.items():
-            solves[k] = max(solves.get(k, v), v)
-    sat_shapes = set()
-    for pts, planes, k, mask, lateral, slack in probe.sat + deep.sat:
-        e, t = compare_hull_sat(pts, planes, k, mask, lateral, slack,
-                                f"terrain capture {tuple(pts.shape)}")
-        err["hull_ref_face_depth"] = max(err["hull_ref_face_depth"], e)
-        ties["hull_ref_face_depth"] += t
-        sat_shapes.add(tuple(pts.shape))
+    held = hold_captures(probe.chol, probe.sat + deep.sat, "terrain")
+    err = dict(hull_ref_face_depth=held["sat_max_abs_err"], mtv_query=0.0)
+    ties = dict(hull_ref_face_depth=held["sat_accepted_near_ties"],
+                mtv_query=0, mtv_staged=0)
     live = 0
     for b, enabled in deep.mtv:
         for name, (e, t) in compare_mtv(b, "terrain deep capture",
@@ -1819,7 +1886,7 @@ def terrain_kernels(probe, deep):
                 err["mtv_query"] = max(err["mtv_query"], e)
             ties[name] += t
         live += int(enabled.sum())
-    if not probe.chol or not probe.sat or live == 0:
+    if not probe.sat or live == 0:
         raise AssertionError("the terrain rollout gave no kernel inputs to "
                              f"check (live deep slots {live})")
     b = deep.mtv[0][0]
@@ -1834,15 +1901,10 @@ def terrain_kernels(probe, deep):
         device_ms=_graph_ms(lambda: mtv_query.mtv_query_cuda(*args)),
         plain_ms=_median_ms(lambda: mtv_query.mtv_query_plain(*args)),
         bound_ms=bound, bound_by=by)
-    phase("terrain_kernels", captured_chol_calls=len(probe.chol),
-          chol_shapes=sorted({tuple(A.shape) for A, _ in probe.chol}),
-          chol_solve_vs_f64=dict(solves, bwd_ratio_limit=CHOL_BWD_RATIO,
-                                 fwd_factor_limit=CHOL_FWD_FACTOR),
-          captured_sat_calls=len(probe.sat) + len(deep.sat),
-          sat_shapes=sorted(sat_shapes), captured_mtv_calls=len(deep.mtv),
+    phase("terrain_kernels", **held, captured_mtv_calls=len(deep.mtv),
           live_deep_slots_checked=live, max_abs_err=err,
           accepted_near_ties=ties, mtv_query_deep_timing=timing)
-    return err, solves, timing
+    return err, held["chol_solve_vs_f64"], timing
 
 
 def terrain_cross_drift(m, start, n=16, nsteps=50):
@@ -1963,6 +2025,478 @@ def control_main_path(card):
           env_steps_per_s=n * nsteps / secs, card=card)
 
 
+# ----------------------------------------------------------- runtime phase
+
+def _consts(m):
+    return dict(m.layout._consts)
+
+
+def _same_consts(before, after):
+    return after.keys() == before.keys() and all(
+        after[k] is before[k] for k in before)
+
+
+def _spawn_model(dtype, device):
+    """bench.py's config 4 on the in-repo world: spawn_ball.xml composed
+    with 4 instances, Euler as the bench sets it."""
+    from mujoco_sim_tpu_torch import engine
+    from mujoco_sim_tpu_torch.models import scene
+    from mujoco_sim_tpu_torch.models.compile import compile_spec
+    from mujoco_sim_tpu_torch.models.model import Integrator
+    spec = scene.compose(WORLD, robots={
+        "sball": scene.RobotConfig(path=BALL)}, instances=4)
+    m = engine.set_const(compile_spec(spec))
+    m = m.replace(opt=m.opt.replace(integrator=int(Integrator.EULER)))
+    return engine.put_model(m, dtype, device)
+
+
+def _ball_qadr(m, name):
+    b = m.names.body_id(name)
+    return int(m.layout.jnt_qposadr[m.layout.body_jntadr[b]])
+
+
+def _spawn_state(m, nenv, seed):
+    """Slots 2_* and 3_* inactive (bench_spawn's half); the two active
+    balls, which compile at one pose, set apart at x = -0.3 and +0.3, as a
+    spawn request would place them, with a seeded jitter of 5 cm in x and
+    y per env; all drop from 0.5 m."""
+    import mujoco_sim_tpu_torch as mst
+    rng = np.random.default_rng(seed)
+    d = mst.make_data(m, nenv)
+    active = np.ones((nenv, m.nbody), bool)
+    for i, name in enumerate(m.names.body):
+        if name.startswith(("2_", "3_")):
+            active[:, i] = False
+    qpos = d.qpos.cpu().numpy().astype(np.float64)
+    for name, x0 in (("sball", -0.3), ("1_sball", 0.3)):
+        qa = _ball_qadr(m, name)
+        qpos[:, qa] = x0 + rng.uniform(-0.05, 0.05, nenv)
+        qpos[:, qa + 1] = rng.uniform(-0.05, 0.05, nenv)
+    return d.replace(
+        qpos=torch.tensor(qpos, dtype=d.qpos.dtype, device=d.qpos.device),
+        body_active=torch.as_tensor(active, device=d.qpos.device))
+
+
+def spawn_main_path(card):
+    """The spawn scene at 4096 envs in f32 on the card: 100 + 200 steps of
+    parallel.rollout, the checks of the runtime's batch services on the
+    final state (health, auto_reset, checkpoint), the plan cache across a
+    mid-rollout flip of the masks, and f32 card vs f64 CPU."""
+    import tempfile
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.runtime import checkpoint, health
+    from mujoco_sim_tpu_torch.utils.struct import leaves_with_keys, map_leaves
+    m = _spawn_model(torch.float32, "cuda")
+    n = NENV
+    d0 = _spawn_state(m, n, 4)
+    inactive = [_ball_qadr(m, nm) for nm in ("2_sball", "3_sball")]
+    q_inactive0 = torch.cat([d0.qpos[:, a:a + 7] for a in inactive], 1)
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    # the solves of a step in the air and of two steps at rest are kept
+    with _Probe(capture_calls=(50, 150, 250)) as probe:
+        t0 = time.perf_counter()
+        d100 = mst.rollout(m, d0, 100)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d = mst.rollout(m, d100, 200)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = _counts()["chol_solve"]
+    if launches < 300:
+        raise AssertionError(f"spawn: chol_solve ran {launches} times in "
+                             "300 steps")
+    bad = _float_leaves_finite(d)
+    if bad:
+        raise AssertionError(f"spawn: non-finite leaves: {bad}")
+    z = torch.stack([d.qpos[:, _ball_qadr(m, nm) + 2]
+                     for nm in ("sball", "1_sball")], 1)
+    zdev = float((z - BALL_REST_Z).abs().max())
+    if not zdev <= BALL_REST_TOL:
+        raise AssertionError(f"spawn: active balls not at rest on the "
+                             f"floor: |z - 0.1| up to {zdev}")
+    q_inactive = torch.cat([d.qpos[:, a:a + 7] for a in inactive], 1)
+    if not torch.equal(q_inactive, q_inactive0):
+        raise AssertionError("spawn: an inactive body moved")
+    healthy = health.env_healthy(d)
+    saturated = health.contact_saturated(m, d)
+    if not bool(healthy.all()) or bool(saturated.any()):
+        raise AssertionError(f"spawn: {int((~healthy).sum())} unhealthy, "
+                             f"{int(saturated.sum())} saturated envs")
+
+    # auto_reset mends exactly the poisoned envs, the rest bit-identical
+    rng = np.random.default_rng(11)
+    bad_envs = np.sort(rng.choice(n, POISONED, replace=False))
+    bad_t = torch.as_tensor(bad_envs, device=m.device)
+    qvel = d.qvel.clone()
+    qvel[bad_t, 0] = float("nan")
+    dp = d.replace(qvel=qvel)
+    mended, mask = health.auto_reset(m, dp)
+    if not torch.equal(torch.nonzero(~mask)[:, 0], bad_t):
+        raise AssertionError("auto_reset: the unhealthy mask is not the "
+                             "poisoned envs")
+    fresh = dict(leaves_with_keys(mst.make_data(m, 1)))
+    keep = torch.as_tensor(np.setdiff1d(np.arange(n), bad_envs),
+                           device=m.device)
+    diffs = [k for (k, a), (_, b) in zip(leaves_with_keys(mended),
+                                         leaves_with_keys(dp))
+             if not torch.equal(a[keep], b[keep])
+             or not torch.equal(a[bad_t], fresh[k].expand_as(a[bad_t]))]
+    if diffs:
+        raise AssertionError(f"auto_reset: {diffs} changed a healthy env "
+                             "or left a poisoned one unmended")
+
+    # the 4096-env checkpoint round-trips bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spawn.npz")
+        tc = time.perf_counter()
+        checkpoint.save_state(d, path, extra={"nenv": n})
+        d2, meta = checkpoint.load_state(m, path)
+        ck_s = time.perf_counter() - tc
+        ck_mb = os.path.getsize(path) / 2 ** 20
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for (_, a), (_, b) in zip(leaves_with_keys(d),
+                                         leaves_with_keys(d2)))
+    if not same or meta != {"nenv": n}:
+        raise AssertionError("checkpoint: the 4096-env batch did not "
+                             "round-trip bit for bit")
+
+    # flip the masks mid-rollout: slot 2 wakes in half the envs, slot 1
+    # sleeps in the other half; the plans are reused, none is built
+    before = _consts(m)
+    ba = d.body_active.clone()
+    half = n // 2
+    ba[:half, m.names.body_id("2_sball")] = True
+    ba[half:, m.names.body_id("1_sball")] = False
+    d3 = mst.rollout(m, d.replace(body_active=ba), 20)
+    torch.cuda.synchronize()
+    if not _same_consts(before, _consts(m)):
+        raise AssertionError("spawn: the plan cache changed when the masks "
+                             "flipped")
+    bad = _float_leaves_finite(d3)
+    if bad:
+        raise AssertionError(f"spawn: non-finite leaves after the flip: "
+                             f"{bad}")
+
+    held = hold_captures(probe.chol, probe.sat, "spawn")
+    del probe
+    cross = spawn_cross_check(m, map_leaves(lambda x: x[:64], d100))
+    steps_s = t2 - t1
+    phase("spawn_main_path", scene="world_empty.xml + 4 x spawn_ball.xml, "
+          "Euler, slots 2_* and 3_* inactive", nenv=n, steps=300,
+          timed="the last 200 of 300 steps",
+          step_ms=1e3 * steps_s / 200, first_100_steps_s=t1 - t0,
+          env_steps_per_s=n * 200 / steps_s,
+          chol_launches=launches, chol_launches_per_step=launches / 300,
+          max_rest_dev=zdev, inactive_still=True, healthy=True,
+          saturated=0, auto_reset_mended=POISONED,
+          checkpoint_mb=ck_mb, checkpoint_round_trip_s=ck_s,
+          plan_cache_entries=len(before), plan_cache_unchanged=True,
+          kernels_at_path_inputs=held, cross_check=cross, card=card)
+    return launches, held
+
+
+def spawn_cross_check(m, d_start, nsteps=100):
+    """64 envs from the card's state after 100 steps (in the air, landing
+    at ~145): 100 more steps in f32 on the card and in f64 on the CPU."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.utils.struct import map_leaves
+    m64 = _spawn_model(torch.float64, "cpu")
+    d64 = map_leaves(lambda x: (x.double() if x.is_floating_point() else x)
+                     .cpu(), d_start)
+    outs = []
+    for mm_, dd in ((m, d_start), (m64, d64)):
+        dd = mst.rollout(mm_, dd, nsteps)
+        outs.append((dd.qpos.double().cpu(), dd.qvel.double().cpu()))
+    dq = float((outs[0][0] - outs[1][0]).abs().max())
+    dv = float((outs[0][1] - outs[1][1]).abs().max())
+    if not dq <= CROSS_TOL or not dv <= CROSS_TOL:
+        raise AssertionError(f"spawn card f32 vs CPU f64 deviation qpos "
+                             f"{dq}, qvel {dv} > {CROSS_TOL}")
+    return dict(nenv=d_start.qpos.shape[0], steps=nsteps, max_dev_qpos=dq,
+                max_dev_qvel=dv, tolerance=CROSS_TOL)
+
+
+class _Timed:
+    """The port's client with each call's wall time kept (op, ms)."""
+
+    def __init__(self, port):
+        from mujoco_sim_tpu_torch.io.client import SimClient
+        self.c = SimClient(port=port, timeout=SERVER_DEADLINE)
+        self.ms = []
+
+    def call(self, op, **kw):
+        t0 = time.perf_counter()
+        r = self.c.call(op, **kw)
+        self.ms.append((op, 1e3 * (time.perf_counter() - t0)))
+        if "error" in r:
+            raise AssertionError(f"server: {op} failed: {r['error']}")
+        return r
+
+    def close(self):
+        # SimClient.close() closes the socket, but the connection stays
+        # open while the client's file object lives: close that too, or
+        # the server goes on streaming to it
+        self.c.f.close()
+        self.c.close()
+
+
+def _latency(c, n=20):
+    """p50 and max wall ms of n get_state requests."""
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        c.call("get_state")
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return dict(requests=n, p50_ms=statistics.median(ms), max_ms=max(ms))
+
+
+def _until(cond, what):
+    deadline = time.monotonic() + SERVER_DEADLINE
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"server: no {what} within {SERVER_DEADLINE} s")
+
+
+def _alive(srv):
+    if not srv._sim_thread.is_alive():
+        raise AssertionError(f"server: the sim thread died:\n{srv.sim_error}")
+
+
+def server_main_path(card):
+    """One env on the RK4 world, as the reference runs it, served over TCP
+    on a free local port: the scenario of tests/test_server.py through the
+    port's client, then a second server for cmd_vel."""
+    import tempfile
+    from mujoco_sim_tpu_torch.io.server import SimServer
+    from mujoco_sim_tpu_torch.ops import hull_sat
+    from mujoco_sim_tpu_torch.runtime import config
+    spec, m, sim, _ = config.build(
+        {"world": WORLD, "robots": {"sball": {"path": BALL}},
+         "spawn_instances": 4}, device="cuda")
+    if m.opt.integrator != 1:
+        raise AssertionError("server: the world is not RK4")
+    dt = float(m.opt.timestep)
+    srv = SimServer(sim, port=0, spec=spec, asset_dirs=[FIXTURES])
+    swaps = []
+    hot_swap = sim.hot_swap
+
+    def spy(new_m, spawnable):       # the state on either side of the swap
+        old_m, old_d = sim.m, sim.d
+        hot_swap(new_m, spawnable)
+        swaps.append((old_m, old_d, sim.m, sim.d))
+        return sim.d
+
+    sim.hot_swap = spy
+    _reset_counts()
+    srv.start(run_sim=True)
+    c = _Timed(srv.port)
+    try:
+        names = []
+        for i in range(3):
+            a = 2 * np.pi * i / 3
+            names += c.call("spawn_objects", objects=[{
+                "info": {"name": f"ball{i}", "type": 1}, "class": "sball",
+                "pose": [0.6 * np.cos(a), 0.6 * np.sin(a), 0.5,
+                         1, 0, 0, 0]}])["names"]
+        t_stream, steps0 = time.perf_counter(), srv.steps
+        launches0 = _counts()["chol_solve"]
+        stream = _Timed(srv.port)
+        # the sim thread's solves (nv = 24) at its first step and about
+        # 100 and 200 steps on: RK4 runs collision 4 times a step
+        with _Probe(capture_calls=(1, 400, 800)) as probe_balls:
+            for msg in stream.c.subscribe(["object_states"], rate=30.0):
+                if msg["object_states"]["time"] >= 0.6:
+                    break
+                if time.perf_counter() - t_stream > SERVER_DEADLINE:
+                    raise AssertionError("server: sim time did not reach "
+                                         f"0.6 s in {SERVER_DEADLINE} s")
+        wall = time.perf_counter() - t_stream
+        stream.close()
+        nsteps = srv.steps - steps0
+        chol_window = _counts()["chol_solve"] - launches0
+        _alive(srv)
+        if nsteps == 0 or chol_window < nsteps:
+            raise AssertionError(f"server: {chol_window} chol_solve launches "
+                                 f"in {nsteps} sim-thread steps")
+        state = c.call("get_state", names=names)
+        zs = [o["pose"]["position"][2] for o in state["objects"]]
+        if len(zs) != 3 or max(abs(z - BALL_REST_Z) for z in zs) > \
+                BALL_REST_TOL:
+            raise AssertionError(f"server: the balls did not land: {zs}")
+        # a request waits for the step in progress; a subscriber's
+        # publisher also waits for the lock on the server's event loop
+        lat_idle = _latency(c)
+        sub = _Timed(srv.port)
+        next(iter(sub.c.subscribe(["object_states"], rate=30.0)))
+        lat_sub = _latency(c)
+        sub.close()
+        final = c.call("destroy_objects", names=names[2:])["object_states"]
+        if len(final[0]["pose"]) != 7 or abs(
+                final[0]["pose"][2] - BALL_REST_Z) > BALL_REST_TOL:
+            raise AssertionError(f"server: destroy answered {final}")
+        if not c.call("reset")["success"]:
+            raise AssertionError("server: reset failed its verification")
+        with tempfile.TemporaryDirectory() as tmp:
+            files = c.call("screenshot", out_dir=tmp, name="shot")["files"]
+            if sorted(files) != ["data_txt", "model_txt", "state", "xml"] \
+                    or not all(os.path.getsize(f) > 0
+                               for f in files.values()):
+                raise AssertionError(f"server: screenshot wrote {files}")
+        service_ms = {}
+        for op, ms in c.ms:
+            if op != "get_state":
+                service_ms.setdefault(op, []).append(ms)
+        # the hot-swap path: cube.stl is no registered class; found through
+        # asset_dirs, it is compiled in with two slots and swapped in
+        t_swap = time.perf_counter()
+        cube0 = c.call("spawn_objects", objects=[{
+            "info": {"name": "cube", "type": 3, "mesh": "cube.stl"},
+            "pose": [0, 0, 0.12, 1, 0, 0, 0]}])["names"]
+        swap_ms = 1e3 * (time.perf_counter() - t_swap)
+        if len(swaps) != 1:
+            raise AssertionError("server: the mesh spawn did not hot-swap")
+        old_m, old_d, new_m, new_d = swaps[0]
+        for nm in names[:2]:
+            slot = sim.by_public_name[nm]
+            jn = new_m.names.joint[slot.free_jnt]
+            jo = old_m.names.joint_id(jn)
+            qo = int(old_m.layout.jnt_qposadr[jo])
+            if not torch.equal(new_d.qpos[0, slot.qpos_adr:slot.qpos_adr + 7],
+                               old_d.qpos[0, qo:qo + 7]):
+                raise AssertionError(f"server: {nm}'s qpos changed across "
+                                     "the hot swap")
+        # the second cube (the registered class now, no swap) drops onto
+        # the first: a mesh-mesh pair for the face-SAT kernel
+        cube1 = c.call("spawn_objects", objects=[{
+            "info": {"name": "cube", "type": 3, "mesh": "cube.stl"},
+            "pose": [0.02, 0.01, 0.36, 1, 0, 0, 0]}])["names"]
+        if len(swaps) != 1:
+            raise AssertionError("server: a registered class hot-swapped")
+        top = sim.by_public_name[cube1[0]].qpos_adr + 2
+        _until(lambda: float(sim.d.qpos[0, top]) < 0.32, "cube landing")
+        sat0, steps1 = hull_sat.LAUNCHES, srv.steps
+        # the solves (nv = 36 after the swap) and the cubes' face SAT at
+        # the first, the 11th and the 19th of these steps
+        with _Probe(capture_calls=(1, 41, 73)) as probe_cubes:
+            _until(lambda: srv.steps >= steps1 + 20, "20 steps after")
+        sat_launches = hull_sat.LAUNCHES - sat0
+        sat_steps = srv.steps - steps1
+        if sat_launches == 0:
+            raise AssertionError("server: no hull_ref_face_depth launch "
+                                 "with the two cubes in contact")
+        t_end, steps_end = time.perf_counter(), srv.steps
+        _alive(srv)
+        sim_time = float(sim.d.time[0])
+        if sim_time <= 0:
+            raise AssertionError("server: sim time did not advance")
+        chol_total = _counts()["chol_solve"]
+        c.call("destroy_objects", names=names[:2] + cube0 + cube1)
+    finally:
+        c.close()
+        srv.stop()
+    if srv._sim_thread.is_alive():
+        raise AssertionError("server: the sim thread did not stop")
+    if not probe_cubes.sat:
+        raise AssertionError("server: no face-SAT input of the cube pair "
+                             "captured")
+    held = {name: hold_captures(p.chol, p.sat, f"server {name}")
+            for name, p in (("balls", probe_balls),
+                            ("cube_pair", probe_cubes))}
+    del probe_balls, probe_cubes
+    odom = odom_server(card)
+    phase("server_main_path", scene="world_empty.xml (RK4) + 4 x "
+          "spawn_ball.xml slots, one env", dt=dt,
+          timed="sim-thread steps while one client streams object_states "
+          "at 30 Hz, from the spawn of three balls to sim time 0.6 s",
+          steps_per_s=nsteps / wall, rtf=nsteps * dt / wall,
+          window_steps=nsteps, window_s=wall,
+          chol_launches_per_step=chol_window / nsteps,
+          get_state_latency=lat_idle,
+          get_state_latency_with_30hz_subscriber=lat_sub,
+          service_request_ms=service_ms, hot_swap_request_ms=swap_ms,
+          cube_pair_hull_ref_face_depth_launches=sat_launches,
+          cube_pair_steps=sat_steps, kernels_at_path_inputs=held,
+          sim_thread_steps=steps_end, sim_time_after_reset=sim_time,
+          chol_launches=chol_total, odom=odom, card=card,
+          wall_s=t_end - t_stream)
+    return chol_total, sat_launches, sat_steps, held
+
+
+def odom_server(card):
+    """benchbot.xml with odom joints on the RK4 world: cmd_vel sets the
+    odom joints' velocity; the base moves forward and turns."""
+    from mujoco_sim_tpu_torch.io.server import SimServer
+    from mujoco_sim_tpu_torch.runtime import config
+    spec, m, sim, meta = config.build(
+        {"world": WORLD, "robot": BENCHBOT,
+         "add_odom_joints": {"benchbot": True}}, device="cuda")
+    srv = SimServer(sim, port=0, spec=spec, robots=meta)
+    srv.start(run_sim=True)
+    c = _Timed(srv.port)
+    try:
+        cmd = [0.4, 0.0, 0.0, 0.0, 0.0, 0.3]
+        c.call("cmd_vel", robot="benchbot", twist=cmd)
+        s0 = srv.steps
+        _until(lambda: srv.steps >= s0 + 3, "steps after cmd_vel")
+        msgs = []
+        for msg in c.c.subscribe(["base_pose"], rate=10.0):
+            msgs.append(msg["base_pose"]["odom"][0])
+            if len(msgs) == 2:
+                break
+        _alive(srv)
+    finally:
+        c.close()
+        srv.stop()
+    first, last = msgs
+    dt = float(m.opt.timestep)
+    yaw0 = last["pose"][5] - dt * last["twist"][5]
+    want = [cmd[0] * np.cos(yaw0), cmd[0] * np.sin(yaw0)]
+    dev = max(abs(last["twist"][0] - want[0]),
+              abs(last["twist"][1] - want[1]),
+              abs(last["twist"][5] - cmd[5]))
+    if not dev <= ODOM_TOL:
+        raise AssertionError(f"odom: twist {last['twist']} vs command "
+                             f"{cmd} at yaw {yaw0}: {dev}")
+    if not (last["pose"][0] > first["pose"][0]
+            and last["pose"][5] > first["pose"][5]):
+        raise AssertionError(f"odom: x and yaw did not rise: {first} -> "
+                             f"{last}")
+    return dict(twist_dev=dev, x=[first["pose"][0], last["pose"][0]],
+                yaw=[first["pose"][5], last["pose"][5]])
+
+
+def loop_main_path(card):
+    """SimLoop paced to the wall clock on the RK4 ball world, one env,
+    max_time_step 4x the nominal step: the RTF and the step the governor
+    settles on."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.runtime.loop import SimLoop
+    from mujoco_sim_tpu_torch.runtime.sim import Simulation
+    from mujoco_sim_tpu_torch.models import scene
+    from mujoco_sim_tpu_torch.models.compile import compile_spec
+    spec = scene.compose(WORLD, robots={
+        "sball": scene.RobotConfig(path=BALL)}, instances=2)
+    sim = Simulation(mst.set_const(compile_spec(spec)),
+                     spawnable={"sball": ["sball", "1_sball"]})
+    sim.spawn("sball", "a", pose=np.array([-0.3, 0, 0.5, 1, 0, 0, 0]))
+    sim.spawn("sball", "b", pose=np.array([0.3, 0, 0.5, 1, 0, 0, 0]))
+    nominal = float(sim.m.opt.timestep)
+    loop = SimLoop(sim.m, sim.d, max_time_step=4 * nominal, real_time=True)
+    t0 = time.perf_counter()
+    d = loop.run(0.5)
+    wall = time.perf_counter() - t0
+    if float(d.time[0]) < 0.5 or _float_leaves_finite(d):
+        raise AssertionError("loop: did not reach 0.5 s of finite state")
+    phase("loop_main_path", scene="world_empty.xml (RK4) + 2 balls, one env",
+          sim_s=float(d.time[0]), wall_s=wall, rtf=loop.rtf,
+          nominal_dt=nominal, max_dt=loop.max_dt,
+          settled_dt=loop.current_dt, card=card)
+
+
 def main(argv):
     t_start = time.perf_counter()
     only = set(argv)
@@ -2004,6 +2538,12 @@ def main(argv):
         t_phase = time.perf_counter()
         control_main_path(card)
         phase("control_phase", seconds=time.perf_counter() - t_phase)
+    if want("runtime"):
+        t_phase = time.perf_counter()
+        spawn_launches, spawn_held = spawn_main_path(card)
+        rt_launches, cube_sat, cube_steps, rt_held = server_main_path(card)
+        loop_main_path(card)
+        phase("runtime_phase", seconds=time.perf_counter() - t_phase)
     phase("total", seconds=time.perf_counter() - t_start)
     if only:
         return
@@ -2013,6 +2553,9 @@ def main(argv):
     f66 = fact_t[(66, MANIP_NENV)]
     worst = {k: max(rand_err[k], cap_err[k], terr.get(k, 0.0))
              for k in rand_err}
+    worst["hull_ref_face_depth"] = max(
+        worst["hull_ref_face_depth"],
+        rt_held["cube_pair"]["sat_max_abs_err"])
     mm, bm = t["mesh_mesh"], t["box_mesh"]
     kernels = [
         dict(name="chol_solve", route="cuda", source=src + "chol_solve.cu",
@@ -2026,6 +2569,11 @@ def main(argv):
              launches_terrain_path=tcounts["chol_solve"],
              launches_precise_path=pcounts["chol_solve"],
              launches_pile_path=pile_counts["chol_solve"],
+             launches_spawn_path=spawn_launches,
+             launches_runtime_path=rt_launches,
+             spawn_capture=spawn_held["chol_solve_vs_f64"],
+             runtime_capture={k: h["chol_solve_vs_f64"]
+                              for k, h in rt_held.items()},
              n38_N1024=chol_t[(38, MANIP_NENV)],
              n66_N1024=c66, n128_N256=chol_t[(128, 256)]),
         dict(name="hull_ref_face_depth", route="cuda",
@@ -2034,6 +2582,10 @@ def main(argv):
              launches=counts["hull_ref_face_depth"],
              launches_precise_path=pcounts["hull_ref_face_depth"],
              launches_terrain_path=tcounts["hull_ref_face_depth"],
+             launches_runtime_cube_pair=cube_sat,
+             runtime_cube_pair_max_abs_err=rt_held["cube_pair"][
+                 "sat_max_abs_err"],
+             runtime_cube_pair_steps=cube_steps,
              max_abs_err=worst["hull_ref_face_depth"],
              ms=mm["ms"], device_ms=mm["device_ms"], plain_ms=mm["plain_ms"],
              bound_ms=mm["bound_ms"], bound_by=mm["bound_by"],

@@ -37,6 +37,18 @@ def leaf_names(obj) -> Iterator[str]:
             yield f.name
 
 
+def leaves_with_keys(obj, prefix: str = "data"):
+    """(key, leaf) of every tensor leaf, nested containers included; a key
+    is the path of field names joined by "/" ("data/contact/dist")."""
+    for name in leaf_names(obj):
+        v = getattr(obj, name)
+        key = f"{prefix}/{name}"
+        if dataclasses.is_dataclass(v):
+            yield from leaves_with_keys(v, key)
+        else:
+            yield key, v
+
+
 def frozen(cls: type[T]) -> type[T]:
     """Class decorator: frozen dataclass with ``.replace(**updates)``."""
     cls = dataclasses.dataclass(frozen=True, eq=False)(cls)
@@ -48,11 +60,14 @@ def frozen(cls: type[T]) -> type[T]:
     return cls
 
 
-def map_leaves(fn, obj):
-    """Apply fn to every tensor leaf, recursing into nested containers."""
+def map_leaves(fn, obj, *others):
+    """Apply fn to every tensor leaf, recursing into nested containers;
+    with ``others`` (containers of the same type), fn gets their
+    same-named leaves as further arguments."""
     updates = {}
     for name in leaf_names(obj):
         v = getattr(obj, name)
-        updates[name] = (map_leaves(fn, v) if dataclasses.is_dataclass(v)
-                         else fn(v))
+        o = [getattr(x, name) for x in others]
+        updates[name] = (map_leaves(fn, v, *o) if dataclasses.is_dataclass(v)
+                         else fn(v, *o))
     return dataclasses.replace(obj, **updates)

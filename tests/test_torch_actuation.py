@@ -24,6 +24,7 @@ from mujoco_sim_tpu_torch.models.compile import compile_spec
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.models.mjcf import parse_mjcf_string
 from mujoco_sim_tpu_torch.parallel.rollout import rollout
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-10
 NENV = 3

@@ -25,6 +25,7 @@ from mujoco_sim_tpu.ops.pallas_support import support_minmax as pallas_smm
 from mujoco_sim_tpu_torch.ops import mtv_query
 from mujoco_sim_tpu_torch.ops import support_minmax as smm
 from mujoco_sim_tpu_torch.utils import kernel_cases
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32 = np.float32
 ORDER = kernel_cases.MTV_ORDER

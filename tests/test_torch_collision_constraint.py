@@ -23,6 +23,7 @@ from mujoco_sim_tpu.parallel.mesh import make_batch
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.models.model import contact_rows_per
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 # bit-level agreement is expected (same f64 arithmetic, summation order

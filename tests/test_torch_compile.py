@@ -19,10 +19,11 @@ import torch
 from mujoco_sim_tpu.models.compile import load_model as jax_load_model
 from mujoco_sim_tpu_torch.models.compile import load_model
 from mujoco_sim_tpu_torch.utils.struct import leaf_names
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURES = ["floor_box.xml", "stack.xml", "arm.xml", "capsule_drop.xml",
-            "floor_ball.xml"]
+            "floor_ball.xml", "world_empty.xml"]
 # scenes with convex meshes, cylinder prisms and actuators: the hull
 # tables (decimated and full, merged faces, face polygons, edges) and the
 # actuator layout must cross too
@@ -82,6 +83,25 @@ def test_load_model_matches_jax_package_on_mesh_scenes(fixture):
     ours, ref = load_model(path), jax_load_model(path)
     _assert_same_container(ours, ref, rtol=1e-12)
     assert ours.mesh_vert_hi.shape[0] >= 1
+
+
+# host-side modules the port carries as copies that differ from the JAX
+# package's only in the package name of their imports
+VERBATIM = ["models/rotations.py", "models/mjcf.py", "models/native.py",
+            "models/compile.py", "ops/colgroups.py", "models/scene.py",
+            "models/urdf.py", "models/export_mjcf.py", "io/messages.py",
+            "io/client.py", "viz/live.py"]
+
+
+@pytest.mark.parametrize("module", VERBATIM)
+def test_host_copies_are_verbatim(module):
+    """A copy must not drift from the module it copies: the JAX package's
+    text with its imports renamed to the port's is the port's text."""
+    ref = (ROOT / "mujoco_sim_tpu" / module).read_text()
+    ref = re.sub(r"\bmujoco_sim_tpu\.", "mujoco_sim_tpu_torch.", ref)
+    ref = re.sub(r"\bfrom mujoco_sim_tpu import",
+                 "from mujoco_sim_tpu_torch import", ref)
+    assert (ROOT / "mujoco_sim_tpu_torch" / module).read_text() == ref
 
 
 def _imported_modules(tree):

@@ -28,6 +28,7 @@ from mujoco_sim_tpu_torch.models.compile import compile_spec
 from mujoco_sim_tpu_torch.models.convert import (
     from_jax_data, from_jax_model, from_jax_pd_config, from_jax_pd_state)
 from mujoco_sim_tpu_torch.models.mjcf import parse_mjcf_string
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 ARM = str(pathlib.Path(__file__).resolve().parent / "fixtures" / "arm.xml")
 NENV = 8

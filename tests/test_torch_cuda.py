@@ -32,10 +32,13 @@ def _spd_batch(rng, N, n):
 
 
 def _case(name):
-    """The cases of tests/test_pallas_chol.py."""
+    """The cases of tests/test_pallas_chol.py, and one env's solves."""
     rng = np.random.default_rng(0)
     if name == "n49_N130":
         return _spd_batch(rng, 130, 49), rng.standard_normal((130, 49))
+    if name in ("n24_N1", "n36_N1"):     # the one-env server's solves
+        n = int(name[1:3])
+        return _spd_batch(rng, 1, n), rng.standard_normal((1, n))
     if name == "stiff_1e9":
         A = _spd_batch(rng, 4, 12)
         A[:, 0, 0] += 1e9                # stiff Newton-Hessian rows
@@ -45,7 +48,8 @@ def _case(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["n49_N130", "stiff_1e9", "batched_ExB"])
+@pytest.mark.parametrize("case", ["n49_N130", "stiff_1e9", "batched_ExB",
+                                  "n24_N1", "n36_N1"])
 def test_kernel_matches_plain_twin(case, cuda_device):
     """f32 kernel vs f32 plain twin on the same CUDA tensors: the two round
     differently (FMA, multiply by the pivot's inverse), hence 2e-5 as in

@@ -24,6 +24,7 @@ from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.ops import passive
 from mujoco_sim_tpu_torch.parallel.rollout import rollout
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 NENV = 5
 

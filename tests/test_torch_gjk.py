@@ -9,6 +9,7 @@ import torch
 
 from mujoco_sim_tpu.ops.gjk import point_hull_closest as jax_phc
 from mujoco_sim_tpu_torch.ops.gjk import point_hull_closest
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-10
 CUBE = np.array([[sx, sy, sz] for sx in (-.5, .5) for sy in (-.5, .5)

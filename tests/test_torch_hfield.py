@@ -34,6 +34,7 @@ from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.models.model import GeomType
 from mujoco_sim_tpu_torch.ops import collision
 from mujoco_sim_tpu_torch.ops.math import quat_to_mat
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURE = pathlib.Path(__file__).resolve().parent / "fixtures" \
     / "tendon_terrain.xml"

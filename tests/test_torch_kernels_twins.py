@@ -41,6 +41,7 @@ from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat, hull_sat,
                                       manifold, mtv_query)
 from mujoco_sim_tpu_torch.ops import support_minmax as smm
 from mujoco_sim_tpu_torch.utils import kernel_cases
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32 = np.float32
 

@@ -25,6 +25,7 @@ from mujoco_sim_tpu.models.compile import compile_spec
 from mujoco_sim_tpu.models.mjcf import parse_mjcf_string
 from mujoco_sim_tpu.ops.manifold import exact_pair_contacts as jax_epc
 from mujoco_sim_tpu_torch.ops.manifold import exact_pair_contacts
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 TOL = 1e-10

@@ -45,6 +45,7 @@ from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.parallel.rollout import rollout
 from mujoco_sim_tpu_torch.utils.struct import leaf_names
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURE = str(pathlib.Path(__file__).resolve().parent / "fixtures"
               / "manip_bin6.xml")

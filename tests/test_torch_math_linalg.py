@@ -12,6 +12,7 @@ from mujoco_sim_tpu.ops import math as jmath
 from mujoco_sim_tpu_torch.ops import chol
 from mujoco_sim_tpu_torch.ops import linalg as tlinalg
 from mujoco_sim_tpu_torch.ops import math as tmath
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-12
 

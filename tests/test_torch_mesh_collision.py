@@ -26,6 +26,7 @@ from mujoco_sim_tpu.parallel.mesh import make_batch
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.ops import collision as tcol
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 TOL = 1e-10

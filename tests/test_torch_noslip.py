@@ -29,6 +29,7 @@ from mujoco_sim_tpu.parallel import mesh as jmesh
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.ops import noslip
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 NENV = 3

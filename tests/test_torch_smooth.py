@@ -23,6 +23,7 @@ from mujoco_sim_tpu_torch.models.mjcf import parse_mjcf
 from mujoco_sim_tpu_torch.ops import constraint as tconstraint
 from mujoco_sim_tpu_torch.ops import smooth as tsmooth
 from mujoco_sim_tpu_torch.ops import support as tsupport
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 SCENES = ["arm.xml", "floor_box.xml", "stack.xml", "capsule_drop.xml",

@@ -17,6 +17,7 @@ from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.parallel.rollout import rollout
 from mujoco_sim_tpu_torch.utils.struct import leaf_names
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 # scene -> {qpos index: height} of a state a few mm above resting contact

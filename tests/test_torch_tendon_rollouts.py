@@ -15,6 +15,7 @@ from mujoco_sim_tpu.parallel import mesh as jmesh
 from mujoco_sim_tpu_torch.models.convert import from_jax_data
 from mujoco_sim_tpu_torch.parallel.rollout import rollout
 from tests.test_torch_tendons import SCENES, _seeded
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 INLINE = [k for k, v in SCENES.items() if v is not None]
 

@@ -40,6 +40,7 @@ from mujoco_sim_tpu_torch.models.compile import compile_spec
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.models.mjcf import parse_mjcf_string
 from mujoco_sim_tpu_torch.ops import tendon
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURE = pathlib.Path(__file__).resolve().parent / "fixtures" \
     / "tendon_terrain.xml"

@@ -32,6 +32,7 @@ from mujoco_sim_tpu.parallel.mesh import make_batch
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.parallel.rollout import rollout
+from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURE = str(pathlib.Path(__file__).resolve().parent / "fixtures"
               / "tendon_terrain.xml")
