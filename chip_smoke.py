@@ -23,7 +23,14 @@ checkpoint, masks flipped mid-rollout), the TCP server at one env on the
 RK4 world driven by the port's client (spawn, stream, destroy, reset,
 screenshot, a hot swap by mesh path, cmd_vel on a second server), each
 of the two with its kernels held to their twins at the inputs it gave
-them, and the paced SimLoop.  Builds
+them, and the paced SimLoop; then the parallel path, the JAX package's
+scaling workload (box @4096, 512 envs a device over 8 devices): the
+batch in four shards on the card against the unsharded rollout, the ring
+exchange, the chunked trajectory egress against the one-call trajectory
+with its overhead, the sharded batch's egress against its shards' own
+trajectories and, step by step, the unsharded one, one NCCL process through parallel.distributed, and
+the USD/OWL exporters and (where matplotlib is installed) the CLI's
+render on the card's state.  Builds
 the six hand-written kernels from the checkout's own sources, holds each
 against its plain PyTorch twin, and checks the results.  Run from the root
 of a checkout, with one card:
@@ -38,8 +45,9 @@ record (JSON); the last line is
 
 ``python3 chip_smoke.py build kernels`` runs only the named phases (of
 env, build, kernels, box, pile, manip, precise, bighull, terrain,
-control, runtime) and prints no final record: a quick check of the
-kernels alone; ``build runtime`` is the quick check of the runtime.
+control, runtime, parallel) and prints no final record: a quick check of
+the kernels alone; ``build runtime`` is the quick check of the runtime,
+``build parallel`` that of the mesh, the egress and the exporters.
 """
 
 from __future__ import annotations
@@ -68,6 +76,20 @@ WORLD = os.path.join(FIXTURES, "world_empty.xml")
 BALL = os.path.join(FIXTURES, "spawn_ball.xml")
 BENCHBOT = os.path.join(FIXTURES, "benchbot.xml")
 NENV = 4096
+# the parallel path: benchmarks/scaling.py's 4096 envs (512 a device over 8
+# devices) in four shards on the one card.  A shard is not bit-equal to its
+# rows of the whole batch on the card: the batched matmul of the Newton
+# gradient, J^T f at ops/solver.py:231 ((B, 6, 16) x (B, 16, 1)), rounds
+# otherwise at B = 1024 than at B = 4096 (cuBLAS picks its kernel by the
+# batch; scripts/torch_batch_bits.py: first at step 65, 4.2e-7 in qpos).
+# The sharded rollout is held to SHARD_TOL, set from its own readings:
+# qpos 4.8e-5 and 1.1e-4 from the unsharded rollout after 300 steps
+# (PERF.md section 6, four card runs), and about 4x the larger.  It is held
+# at every step of a 128-step sharded trajectory as well, through the
+# boxes' landing (a 0.5-0.8 m fall lands at steps 65-82), so a fault that
+# moves only the transients shows and is not settled away.
+PARALLEL_SHARDS = 4
+SHARD_TOL = 5e-4
 MANIP_NENV = 1024
 # chol_solve vs plain twin: |x_kernel - x_plain| <= ATOL + RTOL |x_plain|
 # (f32, the two round differently; the band of tests/test_pallas_chol.py)
@@ -1531,9 +1553,9 @@ def precise_main_path(card):
     m = mst.put_model(mst.load_model(PRECISE))   # float32, on the card
     d0 = mst.make_data(m, MANIP_NENV)
     stir = _stir(MANIP_NENV, m.nu, m.device, m.dtype)
-    # 100 timed steps (200 before the runtime phase was added): the script
-    # stays inside its time
-    nsteps = 100
+    # 50 timed steps (200 before the runtime phase was added, 100 before
+    # the parallel phase's sharded egress): the script stays inside its time
+    nsteps = 50
 
     # warm-up rollout: short (plans, allocator); the timed rollout starts
     # from the same state and repeats its first steps bit for bit
@@ -2497,6 +2519,269 @@ def loop_main_path(card):
           settled_dt=loop.current_dt, card=card)
 
 
+# ----------------------------------------------------------- parallel path
+
+def parallel_main_path(card):
+    """The JAX package's scaling workload (benchmarks/scaling.py: floor_box,
+    512 envs a device over 8 devices) at full width on one card, with
+    bench.py's seeded jitter (lift and spin): 4096 envs in four shards on
+    cuda:0 against the unsharded rollout of the same batch, the ring
+    exchange, the trajectory egress against the one-call trajectory, the
+    sharded batch's egress against its shards' own trajectories and the
+    unsharded one step by step, and one NCCL process through
+    parallel.distributed."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.parallel import egress, mesh as pmesh
+    m = mst.put_model(mst.load_model(BOX))
+    d0 = _with_state(*_jittered(m, NENV, 9))
+    mesh = pmesh.make_env_mesh(["cuda:0"] * PARALLEL_SHARDS)
+    mR = pmesh.replicate_model(m, mesh)
+    if mR.on("cuda:0") is not m:
+        raise AssertionError("replicate_model copied the model onto the "
+                             "device it is on")
+    dS = pmesh.shard_batch(d0, mesh)
+    per = NENV // PARALLEL_SHARDS
+    nsteps = 300
+    run = pmesh.make_sharded_rollout(mR, mesh, nsteps)
+
+    # a. the sharded rollout, with two steps of each shard's solves kept
+    _reset_counts()
+    torch.cuda.synchronize()
+    with _Probe(capture_calls=[k * nsteps + s for k in range(
+            PARALLEL_SHARDS) for s in (20, 250)]) as probe:
+        t0 = time.perf_counter()
+        out = run(mR, dS)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+    launches = _counts()["chol_solve"]
+    if launches < PARALLEL_SHARDS * 2 * nsteps:
+        raise AssertionError(f"parallel: chol_solve ran {launches} times "
+                             f"in {nsteps} steps of {PARALLEL_SHARDS} "
+                             "shards")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = mst.rollout(m, d0, nsteps)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    got = out.gather()
+    bad = _float_leaves_finite(got)
+    if bad:
+        raise AssertionError(f"parallel: non-finite leaves: {bad}")
+    bit_equal = all(torch.equal(getattr(got, k), getattr(ref, k))
+                    for k in ("qpos", "qvel", "xpos", "xquat", "qacc"))
+    dev = float((got.qpos - ref.qpos).abs().max())
+    if not dev <= SHARD_TOL:
+        raise AssertionError(f"parallel: sharded qpos {dev} from the "
+                             f"unsharded rollout, over {SHARD_TOL}")
+    ok, zmin, zmax, vmax = _settled(got, [0.08], 0.12 + 0.01, 0.05)
+    held = hold_captures(probe.chol, [], "parallel")
+    del probe
+
+    # b. the ring: shard i receives shard i-1's block of envs, on the
+    # unsharded final state split over the mesh and on the sharded one
+    def ring_is_roll(dS, d):
+        pos, quat = pmesh.exchange_body_state(dS, mesh, 1)
+        return (torch.equal(pos.gather(), torch.roll(d.xpos[:, 1], per, 0))
+                and torch.equal(quat.gather(),
+                                torch.roll(d.xquat[:, 1], per, 0)))
+
+    ring_plain = ring_is_roll(pmesh.shard_batch(ref, mesh), ref)
+    ring = ring_is_roll(out, got)
+    if not (ring and ring_plain):
+        raise AssertionError("parallel: the ring is not the block roll")
+
+    # c. egress: chunked rollout_traj without and with the copies out
+    n_eg, chunk = 256, 64
+    cache = {}
+    final, traj = pmesh.rollout_traj(m, d0, n_eg)
+    collected = []
+
+    def chunked():
+        d = d0
+        for _ in range(n_eg // chunk):
+            d, _ = pmesh.rollout_traj(m, d, chunk)
+
+    # in turns (chunked, egress, egress, chunked), best of 2 each;
+    # rollout_collect times each chunk's read-out (the wait on its copy
+    # and the memcpy out of the pinned buffer) into cache["read_s"]
+    times = {"c": [], "e": []}
+    for c in "ceec":
+        times[c] += _timed_rollouts(chunked if c == "c" else (
+            lambda: collected.append(egress.rollout_collect(
+                m, d0, n_eg, chunk, jit_cache=cache))), 1)
+    reads = cache["read_s"]
+    rate_chunked = NENV * n_eg / min(times["c"])
+    rate_egress = NENV * n_eg / min(times["e"])
+    for got_final, host in collected:
+        if not (np.array_equal(host, traj.cpu().numpy())
+                and torch.equal(got_final.qpos, final.qpos)):
+            raise AssertionError("egress: the chunked trajectory differs "
+                                 "from the one-call rollout_traj")
+
+    # the sharded batch egresses shard by shard into its env columns, as
+    # benchmarks/scaling.py egresses its sharded batch: equal bit for bit
+    # to each shard's own rollout_traj, and at every step within SHARD_TOL
+    # of the unsharded trajectory
+    n_sh, chunk_sh = 128, 32
+    sh_final, sh_traj = egress.rollout_collect(mR, dS, n_sh, chunk_sh,
+                                               jit_cache=cache)
+    own = [pmesh.rollout_traj(mR.on(dev), s, n_sh)
+           for dev, s in zip(mesh.local_devices, dS.shards)]
+    if not (np.array_equal(sh_traj, torch.cat([t for _, t in own],
+                                              1).cpu().numpy())
+            and all(torch.equal(f.qpos, g.qpos)
+                    for (f, _), g in zip(own, sh_final.shards))):
+        raise AssertionError("egress: the sharded trajectory differs from "
+                             "its shards' rollout_traj")
+    step_dev = np.abs(sh_traj - traj[:n_sh].cpu().numpy()).max(axis=(1, 2))
+    if not step_dev.max() <= SHARD_TOL:
+        raise AssertionError(
+            f"parallel: sharded trajectory {step_dev.max()} from the "
+            f"unsharded at step {int(step_dev.argmax()) + 1}, over "
+            f"{SHARD_TOL}")
+    first = np.flatnonzero(step_dev)
+
+    # d. one NCCL process: initialize, the global mesh, a host-local batch
+    dist_out = parallel_distributed(m, d0, traj)
+    phase("parallel_main_path", scene="floor_box.xml", nenv=NENV,
+          shards=PARALLEL_SHARDS, mesh=[str(x) for x in mesh.devices],
+          steps=nsteps, sharded_bit_equal=bit_equal, sharded_max_dev=dev,
+          sharded_tol=SHARD_TOL,
+          sharded_traj=dict(steps=n_sh, chunk=chunk_sh,
+                            bit_equal_own_shards=True,
+                            max_dev=float(step_dev.max()),
+                            max_dev_step=int(step_dev.argmax()) + 1,
+                            dev_at_step_20=float(step_dev[19]),
+                            first_differing_step=(int(first[0]) + 1
+                                                  if first.size else None)),
+          settled=bool(ok.all()), z_range=[zmin, zmax], max_speed=vmax,
+          sharded_s=sharded_s, unsharded_s=plain_s,
+          sharded_env_steps_per_s=NENV * nsteps / sharded_s,
+          unsharded_env_steps_per_s=NENV * nsteps / plain_s,
+          chol_launches=launches,
+          chol_launches_per_step=launches / nsteps,
+          chol_launches_per_shard_step=launches / nsteps / PARALLEL_SHARDS,
+          kernels_at_path_inputs=held, ring_block=per,
+          ring_unsharded_equals_roll=ring_plain,
+          ring_sharded_equals_roll=ring,
+          egress=dict(steps=n_eg, chunk=chunk, traj_shape=list(host.shape),
+                      traj_mb=host.nbytes / 2 ** 20, bit_equal=True,
+                      chunked_env_steps_per_s=rate_chunked,
+                      egress_env_steps_per_s=rate_egress,
+                      egress_overhead_pct=100.0 * (
+                          1.0 - rate_egress / rate_chunked),
+                      chunked_s=times["c"], egress_s=times["e"],
+                      read_ms_per_chunk=[1e3 * r for r in reads[-(
+                          n_eg // chunk):]],
+                      timed="in turns c e e c, best of 2 each"),
+          distributed=dist_out, card=card)
+    return launches, held
+
+
+def parallel_distributed(m, d0, traj):
+    """initialize with one NCCL process on a free port, global_env_mesh,
+    host_local_batch of the same 4096 envs, a 50-step sharded rollout
+    (held to step 50 of the plain trajectory ``traj`` from d0) and the
+    ring through NCCL point-to-point (one process: its block comes back
+    to it)."""
+    import socket
+    import torch.distributed as dist
+    from mujoco_sim_tpu_torch.parallel import distributed as D
+    from mujoco_sim_tpu_torch.parallel import mesh as pmesh
+    from mujoco_sim_tpu_torch.utils.struct import map_leaves
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    D.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda", timeout=120)
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"initialize chose {backend}, not nccl")
+        mesh = D.global_env_mesh()
+        if mesh.world != 1 or mesh.local_devices != (torch.device(
+                "cuda", 0),):
+            raise AssertionError(f"global_env_mesh: {mesh}")
+        def env(i):
+            return map_leaves(lambda x: x[i:i + 1], d0)
+
+        dS = D.host_local_batch(env, NENV, mesh)
+        nsteps = 50
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = pmesh.make_sharded_rollout(m, mesh, nsteps)(m, dS)
+        torch.cuda.synchronize()
+        roll_s = time.perf_counter() - t1
+        got = out.gather()
+        if not torch.equal(got.qpos, traj[nsteps - 1]):
+            raise AssertionError("distributed: the one-process rollout "
+                                 "differs from the plain one")
+        pos, quat = pmesh.exchange_body_state(out, mesh, 1)
+        torch.cuda.synchronize()
+        if not (torch.equal(pos.gather(), got.xpos[:, 1])
+                and torch.equal(quat.gather(), got.xquat[:, 1])):
+            raise AssertionError("distributed: the NCCL self-ring changed "
+                                 "the block")
+    finally:
+        dist.destroy_process_group()
+    return dict(backend=backend, world=1, nenv=NENV, steps=nsteps,
+                rollout_s=roll_s, env_steps_per_s=NENV * nsteps / roll_s,
+                bit_equal_plain=True, nccl_self_ring=True,
+                seconds=time.perf_counter() - t0)
+
+
+def cli_export_path(card):
+    """The CLI's render of the manip scene after 20 steps on the card, and
+    the USD stage and OWL ABox of the card's env-0 state."""
+    import importlib.util
+    import tempfile
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.__main__ import main as cli
+    from mujoco_sim_tpu_torch.export import owl, usd
+    from mujoco_sim_tpu_torch.utils.struct import host_env
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "manip.png")
+        t0 = time.perf_counter()
+        if has_mpl:
+            if cli(["render", MANIP, png, "--steps", "20"]) != 0:
+                raise AssertionError("render: the CLI returned non-zero")
+            png_kb = os.path.getsize(png) / 1024
+            if not png_kb > 10:
+                raise AssertionError(f"render: {png_kb} KB PNG")
+        render_s = time.perf_counter() - t0
+        m = mst.put_model(mst.load_model(MANIP))
+        d = mst.forward(m, mst.rollout(m, mst.make_data(m, 1), 20))
+        hm, hd = host_env(m, d)
+        stage = usd.export_usd(hm, hd, os.path.join(tmp, "manip.usda"))
+        with open(stage) as f:
+            text = f.read()
+        prims = len(re.findall(r"def (?:Cube|Sphere|Cylinder|Capsule|Plane|"
+                               r"Mesh) ", text))
+        if prims != hm.ngeom:
+            raise AssertionError(f"usd: {prims} geom prims for "
+                                 f"{hm.ngeom} geoms")
+        for b in range(1, hm.nbody):
+            x = ", ".join(str(float(v)) for v in hd.xpos[b])
+            if f"double3 xformOp:translate = ({x})" not in text:
+                raise AssertionError(f"usd: body {b} not at env 0's pose")
+        abox = owl.usd_to_abox(stage, os.path.join(tmp, "manip_ABox.owl"))
+        with open(abox) as f:
+            atext = f.read()
+        missing = [b for b in hm.names.body[1:] if f"#{b}\"" not in atext]
+        if missing:
+            raise AssertionError(f"owl: bodies missing from the ABox: "
+                                 f"{missing}")
+    phase("cli_export", scene="manip_bin6.xml", steps=20,
+          matplotlib=has_mpl,
+          render=("CLI render, PNG checked" if has_mpl else
+                  "not called: no matplotlib on this machine"),
+          png_kb=png_kb if has_mpl else None,
+          render_s=render_s if has_mpl else None,
+          usd_geom_prims=prims, usd_bodies_at_env0_pose=hm.nbody - 1,
+          abox_bytes=len(atext), card=card)
+
+
 def main(argv):
     t_start = time.perf_counter()
     only = set(argv)
@@ -2544,6 +2829,11 @@ def main(argv):
         rt_launches, cube_sat, cube_steps, rt_held = server_main_path(card)
         loop_main_path(card)
         phase("runtime_phase", seconds=time.perf_counter() - t_phase)
+    if want("parallel"):
+        t_phase = time.perf_counter()
+        par_launches, par_held = parallel_main_path(card)
+        cli_export_path(card)
+        phase("parallel_phase", seconds=time.perf_counter() - t_phase)
     phase("total", seconds=time.perf_counter() - t_start)
     if only:
         return
@@ -2571,6 +2861,8 @@ def main(argv):
              launches_pile_path=pile_counts["chol_solve"],
              launches_spawn_path=spawn_launches,
              launches_runtime_path=rt_launches,
+             launches_parallel_path=par_launches,
+             parallel_capture=par_held["chol_solve_vs_f64"],
              spawn_capture=spawn_held["chol_solve_vs_f64"],
              runtime_capture={k: h["chol_solve_vs_f64"]
                               for k, h in rt_held.items()},

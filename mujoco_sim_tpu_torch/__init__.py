@@ -14,8 +14,20 @@ from mujoco_sim_tpu_torch.engine import (  # noqa: F401
     put_model, make_data, forward, step, step1, step2, step_with_control,
     inverse, set_const,
 )
-from mujoco_sim_tpu_torch.models.compile import load_model  # noqa: F401
-from mujoco_sim_tpu_torch.models.model import Model, Data  # noqa: F401
+from mujoco_sim_tpu_torch.models.compile import (  # noqa: F401
+    load_model, compile_spec,
+)
+from mujoco_sim_tpu_torch.models.model import (  # noqa: F401
+    Model, Data, Option, Contact, JointType, GeomType, EqType, Integrator,
+    DisableBit,
+)
 from mujoco_sim_tpu_torch.parallel.rollout import (  # noqa: F401
     batched_step, rollout,
 )
+
+
+def load_urdf_model(path: str, **kw):
+    """Compile a URDF file to a host Model (pass it through put_model)."""
+    from mujoco_sim_tpu_torch.models.urdf import compile_urdf
+
+    return compile_urdf(path, **kw)

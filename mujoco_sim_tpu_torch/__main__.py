@@ -3,10 +3,13 @@
   python -m mujoco_sim_tpu_torch serve <config.yaml>  # mujoco_sim node, on the card
   python -m mujoco_sim_tpu_torch compile <in.urdf> [out.xml] [level]
                                                       # mujoco_compile_node
+  python -m mujoco_sim_tpu_torch render <model.xml> <out.png> [--steps N] [--device cuda|cpu]
+                                                      # offscreen frame of env 0
   python -m mujoco_sim_tpu_torch info <model.xml|.urdf>
 
 `serve` reads a YAML file and needs PyYAML; runtime.config.build(dict)
-does not.
+does not.  `render` steps on the card (`--device cpu` is for tests) and
+draws with matplotlib.
 """
 
 from __future__ import annotations
@@ -44,6 +47,25 @@ def _compile(args):
     print(f"compiled {infile} -> {outfile} (collision level {level})")
 
 
+def _render(args):
+    import torch
+    from mujoco_sim_tpu_torch import engine
+    from mujoco_sim_tpu_torch.models.compile import load_model
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout
+    from mujoco_sim_tpu_torch.utils.struct import host_env
+    from mujoco_sim_tpu_torch.viz.render import render_frame
+
+    path, out = args[0], args[1]
+    steps = int(args[args.index("--steps") + 1]) if "--steps" in args else 0
+    device = args[args.index("--device") + 1] if "--device" in args \
+        else "cuda"
+    m = engine.put_model(load_model(path), torch.float32, device)
+    d = engine.forward(m, rollout(m, engine.make_data(m, 1), steps))
+    hm, hd = host_env(m, d)
+    render_frame(hm, hd, out)
+    print(f"rendered {path} @ t={float(hd.time):.3f}s -> {out}")
+
+
 def _info(args):
     from mujoco_sim_tpu_torch.models.compile import load_model
     from mujoco_sim_tpu_torch.models.urdf import compile_urdf
@@ -68,7 +90,8 @@ def main(argv=None):
         print(__doc__)
         return 1
     cmd, args = argv[0], argv[1:]
-    fn = {"serve": _serve, "compile": _compile, "info": _info}.get(cmd)
+    fn = {"serve": _serve, "compile": _compile, "render": _render,
+          "info": _info}.get(cmd)
     if fn is None:
         print(__doc__)
         return 1

@@ -17,8 +17,8 @@ kernel on the card).
 
 Tendons (fixed and spatial, with wraps and pulleys), site and tendon
 transmissions, heightfields and fluid drag run as in the JAX package; the
-runtime and server above the step are in runtime/ and io/; the
-multi-device layers are not ported yet (ROADMAP §A.10).
+runtime and server above the step are in runtime/ and io/, the
+multi-device layers in parallel/.
 """
 
 from __future__ import annotations

@@ -25,8 +25,8 @@ import torch
 
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.model import Model, Data
-from mujoco_sim_tpu_torch.utils.struct import (leaf_names, leaves_with_keys,
-                                              map_leaves)
+from mujoco_sim_tpu_torch.utils.struct import (host_env, leaf_names,
+                                              leaves_with_keys)
 
 
 def save_state(data: Data, path: str, extra: dict | None = None):
@@ -64,10 +64,6 @@ def load_state(m: Model, path: str, dtype=None) -> tuple[Data, dict]:
     return _restore(d, arrays, unbatched), meta
 
 
-def _host(x):
-    return x.cpu() if isinstance(x, torch.Tensor) else x
-
-
 def screenshot(spec, m: Model, d: Data, out_dir: str,
                name: str = "snapshot") -> dict:
     """Relocatable scene snapshot of env 0: MJCF + meshes + model/data
@@ -81,8 +77,7 @@ def screenshot(spec, m: Model, d: Data, out_dir: str,
     from mujoco_sim_tpu_torch.models.export_mjcf import (
         export_mjcf, print_model_txt, print_data_txt)
 
-    hm = map_leaves(_host, m)
-    hd = map_leaves(lambda x: x[0].cpu(), d)
+    hm, hd = host_env(m, d)
     os.makedirs(out_dir, exist_ok=True)
     files = {}
     xml = os.path.join(out_dir, f"{name}.xml")

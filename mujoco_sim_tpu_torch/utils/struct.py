@@ -71,3 +71,17 @@ def map_leaves(fn, obj, *others):
         updates[name] = (map_leaves(fn, v, *o) if dataclasses.is_dataclass(v)
                          else fn(v, *o))
     return dataclasses.replace(obj, **updates)
+
+
+def host_env(m, d, env: int = 0):
+    """Host view of a model and of one env of a batched Data: every tensor
+    leaf as a numpy array on the host, the env axis of Data indexed away.
+
+    The host-side readers (the MJCF/USD/OWL exporters, the renderer) are
+    copies of the JAX package's modules and read numpy arrays of one env;
+    this gives them one copy of each leaf."""
+    def host(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else x
+
+    return (map_leaves(host, m),
+            map_leaves(lambda x: host(x[env]), d))

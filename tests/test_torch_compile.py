@@ -90,7 +90,8 @@ def test_load_model_matches_jax_package_on_mesh_scenes(fixture):
 VERBATIM = ["models/rotations.py", "models/mjcf.py", "models/native.py",
             "models/compile.py", "ops/colgroups.py", "models/scene.py",
             "models/urdf.py", "models/export_mjcf.py", "io/messages.py",
-            "io/client.py", "viz/live.py"]
+            "io/client.py", "viz/live.py", "viz/render.py",
+            "export/usd.py", "export/owl.py"]
 
 
 @pytest.mark.parametrize("module", VERBATIM)
@@ -133,6 +134,27 @@ def test_port_imports_no_jax():
             if mod.split(".")[0] in ("jax", "jaxlib", "mujoco_sim_tpu"):
                 bad.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not bad, bad
+
+
+def test_package_surface_has_every_public_jax_name():
+    """Every public name that mujoco_sim_tpu/__init__.py imports or
+    defines is a name of the port's package."""
+    import mujoco_sim_tpu_torch
+
+    tree = ast.parse((ROOT / "mujoco_sim_tpu" / "__init__.py").read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+    names = {n for n in names if not n.startswith("_")}
+    assert {"compile_spec", "load_urdf_model", "DisableBit"} <= names
+    missing = sorted(n for n in names if not hasattr(mujoco_sim_tpu_torch, n))
+    assert not missing, missing
+    m = mujoco_sim_tpu_torch.load_urdf_model(
+        str(ROOT / "tests" / "fixtures" / "two_link.urdf"))
+    assert m.nbody >= 3
 
 
 def test_port_reads_no_mst_switch():

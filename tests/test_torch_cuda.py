@@ -622,3 +622,69 @@ def test_control_on_card(cuda_device):
     _, _, eff = HW.read(m, d, np.arange(m.nv))
     torch.testing.assert_close(eff, mst.inverse(m, d, d.qacc), rtol=1e-4,
                                atol=1e-4)
+
+
+def _dropped_boxes(m, nenv, seed=0):
+    rng = np.random.default_rng(seed)
+    d = mst.make_data(m, nenv)
+    qpos = d.qpos.clone()
+    qpos[:, 2] += torch.tensor(rng.uniform(0.0, 0.3, nenv),
+                               dtype=qpos.dtype, device=qpos.device)
+    return d.replace(qpos=qpos)
+
+
+@pytest.mark.cuda
+def test_sharded_rollout_on_one_card_matches_unsharded(cuda_device):
+    """Four shards on cuda:0 step as their envs do in the whole batch
+    (every loop is masked per env, chol_solve works per system), but for
+    the rounding of the batched matmul J^T f (ops/solver.py:231), which
+    cuBLAS may compute in another order at another batch size
+    (scripts/torch_batch_bits.py): held to 5e-4, the band chip_smoke.py
+    sets from its readings of box @4096.  The ring is exact."""
+    from mujoco_sim_tpu_torch.parallel import mesh as pmesh
+    m = mst.put_model(mst.load_model(str(FIXTURES / "floor_box.xml")))
+    d = _dropped_boxes(m, 256)
+    mesh = pmesh.make_env_mesh(["cuda:0"] * 4)
+    mR = pmesh.replicate_model(m, mesh)
+    before = chol.LAUNCHES
+    out = pmesh.make_sharded_rollout(mR, mesh, 50)(
+        mR, pmesh.shard_batch(d, mesh))
+    assert chol.LAUNCHES - before >= 4 * 2 * 50
+    ref = mst.rollout(m, d, 50)
+    torch.testing.assert_close(out.gather().qpos, ref.qpos, rtol=0,
+                               atol=5e-4)
+    pos, quat = pmesh.exchange_body_state(pmesh.shard_batch(ref, mesh),
+                                          mesh, 1)
+    assert torch.equal(pos.gather(), torch.roll(ref.xpos[:, 1], 64, 0))
+    assert torch.equal(quat.gather(), torch.roll(ref.xquat[:, 1], 64, 0))
+
+
+@pytest.mark.cuda
+def test_rollout_collect_on_card_equals_rollout_traj(cuda_device):
+    """The chunked rollout with its copies on a side stream into pinned
+    buffers gives rollout_traj's trajectory bit for bit, and so does a
+    batch in four shards on one card (each shard's own buffers, one copy
+    stream) against its shards' rollout_traj."""
+    from mujoco_sim_tpu_torch.parallel import egress, mesh as pmesh
+    m = mst.put_model(mst.load_model(str(FIXTURES / "floor_box.xml")))
+    d = _dropped_boxes(m, 256, seed=1)
+    final, traj = pmesh.rollout_traj(m, d, 48)
+    cache = {}
+    for _ in range(2):      # the second call reuses the pinned buffers
+        got_final, got = egress.rollout_collect(m, d, 48, chunk=16,
+                                                jit_cache=cache)
+        np.testing.assert_array_equal(got, traj.cpu().numpy())
+        assert torch.equal(got_final.qpos, final.qpos)
+    assert any(k[0] == "pinned" for k in cache)
+    mesh = pmesh.make_env_mesh(["cuda:0"] * 4)
+    mR = pmesh.replicate_model(m, mesh)
+    dS = pmesh.shard_batch(d, mesh)
+    own = [pmesh.rollout_traj(m, s, 48) for s in dS.shards]
+    for _ in range(2):
+        got_final, got = egress.rollout_collect(mR, dS, 48, chunk=16,
+                                                jit_cache=cache)
+        np.testing.assert_array_equal(
+            got, torch.cat([t for _, t in own], 1).cpu().numpy())
+        for (f, _), g in zip(own, got_final.shards):
+            assert torch.equal(g.qpos, f.qpos)
+    assert len(cache["read_s"]) == 3

@@ -355,9 +355,9 @@ def test_cli_compile_matches_jax(tmp_path, monkeypatch):
 
 def test_cli_usage_lists_what_exists():
     rc, out = _cli(tcli.main, [])
-    assert rc == 1 and "serve" in out and "info" in out
-    assert "render" not in out
-    assert _cli(tcli.main, ["render", "x.xml"])[0] == 1
+    assert rc == 1 and all(c in out for c in ("serve", "compile", "render",
+                                              "info"))
+    assert _cli(tcli.main, ["nosuch", "x.xml"])[0] == 1
 
 
 def test_live_viewer_headless(pair, tmp_path):
