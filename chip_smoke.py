@@ -30,10 +30,18 @@ exchange, the chunked trajectory egress against the one-call trajectory
 with its overhead, the sharded batch's egress against its shards' own
 trajectories and, step by step, the unsharded one, one NCCL process through parallel.distributed, and
 the USD/OWL exporters and (where matplotlib is installed) the CLI's
-render on the card's state.  Builds
-the six hand-written kernels from the checkout's own sources, holds each
-against its plain PyTorch twin, and checks the results.  Run from the root
-of a checkout, with one card:
+render on the card's state.  Every step path runs through the step graph
+(utils/graph.StepGraph: one CUDA graph a step, the solver's and GJK's
+loops as WHILE nodes), as a user's call of rollout, step_with_control,
+the mesh, the egress, the simulation and the server does; each step
+phase also runs the eager rollout of the same steps (the reference its
+launch counts and kernel captures come from), holds the graph's final
+state to it bit for bit, replays one step under
+torch.cuda.set_sync_debug_mode("error") and prints both paths'
+env-steps/s, host and device ms a step, device busy share and the
+graph's pool.  Builds the seven hand-written kernels from the checkout's
+own sources, holds each against its plain PyTorch twin, and checks the
+results.  Run from the root of a checkout, with one card:
 
     python3 chip_smoke.py
 
@@ -215,20 +223,55 @@ def _ptxas(text):
 
 def build():
     from mujoco_sim_tpu_torch.ops import (chol, chol_factor, cuda_build,
-                                          face_sat, hull_sat, mtv_query,
-                                          support_minmax)
+                                          face_sat, hull_sat, loops,
+                                          mtv_query, support_minmax)
     t0 = time.perf_counter()
     info = cuda_build.build_all()
     for mod in (chol, chol_factor, hull_sat, mtv_query, support_minmax,
-                face_sat):
+                face_sat, loops):
         mod._load()
-    if len(info) != 6:
-        raise AssertionError(f"expected six kernels, built {sorted(info)}")
-    phase("build", wall_seconds=time.perf_counter() - t0, kernels={
+    if len(info) != 7:
+        raise AssertionError(f"expected seven kernels, built {sorted(info)}")
+    phase("build", wall_seconds=time.perf_counter() - t0,
+          cuda_driver=loops.driver_version(), kernels={
         name: dict(source=os.path.relpath(cuda_build.source_path(name), ROOT),
                    library=os.path.relpath(i["path"], ROOT),
                    seconds=i["seconds"], ptxas=_ptxas(i["ptxas"]))
         for name, i in info.items()})
+
+
+def graph_loop_vs_plain():
+    """The predicate kernel of csrc/graph_loop.cu (writing its flag to
+    memory) against mask.any() on the masks of the main paths' loops:
+    (4096,) and (1024,) env masks and a (1024, 40) lane mask of GJK, each
+    all clear, all set, one set at its last entry and seeded at random.
+    Exact: a flag is 0 or 1.  Timed beside mask.any(), which is both its
+    plain version and the one library call for the same function."""
+    from mujoco_sim_tpu_torch.ops import loops
+    rng = np.random.default_rng(5)
+    err, cases = 0, 0
+    for shape in ((NENV,), (MANIP_NENV,), (MANIP_NENV, 40)):
+        n = int(np.prod(shape))
+        last = np.zeros(n, bool)
+        last[-1] = True
+        for pat in (np.zeros(n, bool), np.ones(n, bool), last,
+                    rng.uniform(size=n) < 0.01):
+            mask = torch.tensor(pat.reshape(shape), device="cuda")
+            err = max(err, abs(int(loops.any_cuda(mask))
+                               - int(loops.any_plain(mask))))
+            cases += 1
+    if err:
+        raise AssertionError("graph_loop: the predicate kernel differs "
+                             "from mask.any()")
+    mask = torch.tensor(rng.uniform(size=NENV) < 0.01, device="cuda")
+    bound, by = _bound(NENV + 4, NENV)
+    t = dict(N=NENV, ms=_median_ms(lambda: loops.any_cuda(mask)),
+             device_ms=_graph_ms(lambda: loops.any_cuda(mask)),
+             plain_ms=_median_ms(lambda: loops.any_plain(mask)),
+             library_ms=_median_ms(lambda: torch.any(mask)),
+             bound_ms=bound, bound_by=by)
+    phase("graph_loop_vs_plain", cases=cases, max_abs_err=err, **t)
+    return err, t
 
 
 def _spd(rng, N, n):
@@ -931,6 +974,129 @@ def _timed_rollouts(run, reps):
     return times
 
 
+GRAPH_FIELDS = ("qpos", "qvel", "act", "qacc_warmstart")
+# phase -> the kernel counts of its graph main path (graph_vs_eager)
+GRAPH_COUNTS = {}
+
+
+def _profiled_device_ms(fn, nsteps):
+    """Device time per step (ms) of fn() (nsteps steps) from
+    torch.profiler: the sum of the CUDA kernels and copies it ran, CUDA
+    graph replays' kernels included."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.device_time for e in ev) / 1e3 / nsteps, len(ev) / nsteps
+
+
+def _syncs_per_step(fn):
+    """Host syncs of one call of fn, counted from the warnings of
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def graph_vs_eager(what, m, d0, nsteps, eager_final, card, ctrl_fn=None,
+                   nenv=None, band=0.0, band_cause=None, eager_steps=10,
+                   need=("chol_solve", "graph_loop")):
+    """The phase's path through the step graph: mst.rollout (one CUDA
+    graph a step, captured on its first call, replayed in place) from d0
+    over the phase's nsteps, held field by field to eager_final (the
+    eager rollout_eager of the same steps from d0): bit for bit unless a
+    band is given with its cause.  The kernel counts are set to 0 just
+    before and read just after (the wrappers count the graph's warm-up
+    call and its capture; a replay runs without them).  Then one replay
+    under set_sync_debug_mode("error"), which raises at any host sync, the
+    graph's and the eager step's host time, device time and busy share,
+    host syncs a step, and the graph's pool.  Returns the counts."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.ops import loops
+    from mujoco_sim_tpu_torch.parallel.rollout import (rollout_eager,
+                                                       step_graph)
+    from mujoco_sim_tpu_torch.utils import graph
+    nenv = nenv or d0.qpos.shape[0]
+    graph.clear_all()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_counts()
+    loops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    d = mst.rollout(m, d0, nsteps, ctrl_fn=ctrl_fn)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = dict(_counts(), graph_loop=loops.LAUNCHES)
+    GRAPH_COUNTS[what] = counts
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched on the "
+                             "graph main path")
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    g = step_graph(ctrl_fn)
+    cap = g.last
+    diffs = {k: float((getattr(d, k).double()
+                       - getattr(eager_final, k).double()).abs().max())
+             if getattr(d, k).numel() else 0.0 for k in GRAPH_FIELDS}
+    bad = {k: v for k, v in diffs.items() if not v <= band}
+    if bad:
+        raise AssertionError(f"{what}: graph rollout vs eager rollout over "
+                             f"{nsteps} steps: {bad} > {band}")
+    if nsteps > 1 and _float_leaves_finite(d):
+        raise AssertionError(f"{what}: non-finite leaves in the graph run")
+    # replays only: the capture is made
+    t0 = time.perf_counter()
+    mst.rollout(m, d0, nsteps, ctrl_fn=ctrl_fn)
+    torch.cuda.synchronize()
+    graph_s = (time.perf_counter() - t0) / nsteps
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g(m, d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    k = min(eager_steps, nsteps)
+    t0 = time.perf_counter()
+    rollout_eager(m, d0, k, ctrl_fn=ctrl_fn)
+    torch.cuda.synchronize()
+    eager_s = (time.perf_counter() - t0) / k
+    g_dev, g_kern = _profiled_device_ms(lambda: g.run(m, d, n=5), 5)
+    e_dev, e_kern = _profiled_device_ms(
+        lambda: rollout_eager(m, d, 2, ctrl_fn=ctrl_fn), 2)
+    e_sync = _syncs_per_step(lambda: rollout_eager(m, d, 1, ctrl_fn=ctrl_fn))
+    out = dict(
+        steps=nsteps, nenv=nenv, held=("bit for bit" if band == 0.0
+                                       else f"within {band}: {band_cause}"),
+        max_abs_diff=diffs, launches=counts,
+        eager=dict(env_steps_per_s=nenv / eager_s, host_ms_per_step=eager_s
+                   * 1e3, device_ms_per_step=e_dev,
+                   device_busy_share=e_dev / (eager_s * 1e3),
+                   cuda_ops_per_step=e_kern, host_syncs_per_step=e_sync,
+                   timed_steps=k),
+        graph=dict(env_steps_per_s=nenv / graph_s,
+                   host_ms_per_step=graph_s * 1e3,
+                   device_ms_per_step=g_dev,
+                   device_busy_share=g_dev / (graph_s * 1e3),
+                   cuda_ops_per_step=g_kern, host_syncs_per_step=0,
+                   replays_per_step=1, sync_free_replay=True,
+                   pool_mb=cap.pool_mb, peak_mb_over_rollout=peak_mb,
+                   capture_s=cap.capture_s, first_call_s=first_s),
+        card=card)
+    phase(f"{what}_graph", **out)
+    return counts
+
+
 def box_main_path(card):
     import mujoco_sim_tpu_torch as mst
     m = mst.put_model(mst.load_model(BOX))       # float32, on the card
@@ -944,10 +1110,14 @@ def box_main_path(card):
     d0 = _with_state(d, qpos, qvel)
     nsteps = 300
 
+    # the eager rollout: the reference the graph is held to, and the
+    # launches a step makes
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     _reset_counts()
-    d = mst.rollout(m, d0, nsteps)
+    d = rollout_eager(m, d0, nsteps)
     torch.cuda.synchronize()
     launches = _counts()["chol_solve"]
+    graph_vs_eager("box", m, d0, nsteps, d, card)
 
     bad = _float_leaves_finite(d)
     if bad:
@@ -975,6 +1145,7 @@ def box_main_path(card):
                              f"[{zmin}, {zmax}], max speed {vmax}")
     phase("main_path", scene="floor_box.xml", nenv=NENV, steps=nsteps,
           timed="2 rollouts of 300 steps, carrying on from the warm-up",
+          timed_path="rollout (the step graph); launches: rollout_eager",
           chol_launches=launches, launches_per_step=launches / nsteps,
           finite=True, settled=True, z_range=[zmin, zmax], max_speed=vmax,
           rollout_s=times, env_steps_per_s=NENV * nsteps / min(times),
@@ -982,14 +1153,19 @@ def box_main_path(card):
     return m, qpos, qvel, launches, d
 
 
-def box_integrators(m, d_rest):
+def box_integrators(m, d_rest, card):
     """Short RK4 and implicit rollouts of box @4096 from the settled state
-    of the Euler rollouts: finite and still at rest."""
+    of the Euler rollouts: finite and still at rest, the graph's held to
+    the eager rollout's."""
     import mujoco_sim_tpu_torch as mst
     from mujoco_sim_tpu_torch.models.model import Integrator
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     nsteps, out = 50, {}
     for integ in (Integrator.RK4, Integrator.IMPLICIT):
         mi = m.replace(opt=m.opt.replace(integrator=int(integ)))
+        graph_vs_eager(f"box_{integ.name.lower()}", mi, d_rest, nsteps,
+                       rollout_eager(mi, d_rest, nsteps), card,
+                       eager_steps=5)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         d = mst.rollout(mi, d_rest, nsteps)
@@ -1069,15 +1245,17 @@ def pile_main_path(card):
     if m.nv <= chol.CLASS_MAX_N:
         raise AssertionError(f"box_pile11 has nv = {m.nv}: not above the "
                              "register classes")
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     d0 = mst.make_data(m, MANIP_NENV)
     nsteps = 100
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    d = mst.rollout(m, d0, nsteps)
+    d = rollout_eager(m, d0, nsteps)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = _counts()
+    graph_vs_eager("pile", m, d0, nsteps, d, card)
     bad = _float_leaves_finite(d)
     if bad:
         raise AssertionError(f"pile: non-finite leaves: {bad}")
@@ -1092,6 +1270,7 @@ def pile_main_path(card):
                              f"in [{zmin}, {zmax}], max speed {vmax}")
     phase("pile_main_path", scene="box_pile11.xml", nv=m.nv,
           nenv=MANIP_NENV, steps=nsteps, launches=counts,
+          timed_path="rollout_eager (the graph's: pile_graph)",
           launches_per_step={k: v / nsteps for k, v in counts.items()},
           finite=True, settled=True, z_range=[zmin, zmax], max_speed=vmax,
           rollout_s=secs, env_steps_per_s=MANIP_NENV * nsteps / secs,
@@ -1230,17 +1409,21 @@ def manip_main_path(card):
     stir = _stir(MANIP_NENV, m.nu, m.device, m.dtype)
     nsteps = 150
 
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     _reset_counts()
     with _Probe(capture_calls=(50, 100, 150)) as probe:
-        d = mst.rollout(m, d0, nsteps, ctrl_fn=stir)
+        d = rollout_eager(m, d0, nsteps, ctrl_fn=stir)
         torch.cuda.synchronize()
     counts = _counts()
     ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "main path")
     enabled = int(probe.enabled)
+    graph_vs_eager("manip", m, d0, nsteps, d, card, ctrl_fn=stir,
+                   need=("chol_solve", "graph_loop", "hull_ref_face_depth", "mtv_query"))
     times = _timed_rollouts(
         lambda: mst.rollout(m, d0, nsteps, ctrl_fn=stir), 1)
     phase("manip_main_path", scene="manip_bin6.xml", nenv=MANIP_NENV,
           steps=nsteps, timed="1 rollout of 150 steps after 1 warm-up",
+          timed_path="rollout (the step graph); launches: rollout_eager",
           launches=counts,
           launches_per_step={k: v / nsteps for k, v in counts.items()},
           finite=True, objects_in_bin=True,
@@ -1256,7 +1439,7 @@ def manip_main_path(card):
         mx = m.replace(opt=m.opt.replace(exact_meshcollide=1))
         _reset_counts()
         with _Probe(capture_calls=(25, 50)) as probe_x:
-            dx = mst.rollout(mx, d0, 50, ctrl_fn=stir)
+            dx = rollout_eager(mx, d0, 50, ctrl_fn=stir)
             torch.cuda.synchronize()
         cx = _counts()
         _manip_checks(mx, dx, probe_x, cx, 50, "exact_meshcollide")
@@ -1461,14 +1644,17 @@ def bighull_main_path(card):
     nwarm, nsteps = 20, 100
     dw = mst.rollout(m, d0, nwarm, ctrl_fn=stir)
     torch.cuda.synchronize()
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     _reset_counts()
     final = []
     with _Probe(capture_calls=(25, 50, 75, 100)) as probe:
-        times = _timed_rollouts(
-            lambda: final.append(mst.rollout(m, dw, nsteps, ctrl_fn=stir)), 1)
+        times = _timed_rollouts(lambda: final.append(
+            rollout_eager(m, dw, nsteps, ctrl_fn=stir)), 1)
     counts = _counts()
     d = final[0]
     ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "bighull")
+    graph_vs_eager("bighull", m, dw, nsteps, d, card, ctrl_fn=stir,
+                   need=("chol_solve", "graph_loop", "hull_ref_face_depth", "mtv_query"))
     if counts["mtv_query"] != nsteps:
         raise AssertionError(f"bighull: mtv_query ran {counts['mtv_query']} "
                              f"times in {nsteps} steps (one per step)")
@@ -1493,6 +1679,7 @@ def bighull_main_path(card):
     phase("bighull_main_path", scene="manip_bin6_bighull.xml",
           tables=dict(V=V, E=E, F=F), nenv=MANIP_NENV, steps=nsteps,
           timed=f"1 rollout of {nsteps} steps after a {nwarm}-step warm-up",
+          timed_path="rollout_eager (the graph's: bighull_graph)",
           launches=counts,
           launches_per_step={k: v / nsteps for k, v in counts.items()},
           finite=True, objects_in_bin=True,
@@ -1562,15 +1749,20 @@ def precise_main_path(card):
     nwarm = 20
     dw = mst.rollout(m, d0, nwarm, ctrl_fn=stir)
     torch.cuda.synchronize()
-    # the timed rollout is the one whose launches are counted
+    # the timed eager rollout is the one whose launches are counted
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     _reset_counts()
     final = []
     with _Probe() as probe:
-        times = _timed_rollouts(
-            lambda: final.append(mst.rollout(m, d0, nsteps, ctrl_fn=stir)), 1)
+        times = _timed_rollouts(lambda: final.append(
+            rollout_eager(m, d0, nsteps, ctrl_fn=stir)), 1)
     counts = _counts()
     d = final[0]
     ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "precise")
+    graph_vs_eager("precise", m, d0, nsteps, d, card, ctrl_fn=stir,
+                   eager_steps=5, need=("chol_solve", "graph_loop",
+                                        "hull_ref_face_depth", "mtv_query",
+                                        "chol_factor"))
     bad = _float_leaves_finite(dw)
     if bad:
         raise AssertionError(f"precise warm-up: non-finite leaves: {bad}")
@@ -1609,13 +1801,15 @@ def precise_main_path(card):
     dnos, noslip_ms = _stage_ms(lambda: noslip.noslip(m, dsol))
     _, sensor_ms = _stage_ms(lambda: sensor.sensors(m, dnos))
     _, step_ms = _stage_ms(lambda: engine.step(m, d))
-    # noslip's matrix right-hand side M^-1 Jd^T: one library call at the
-    # shape of the 64 friction rows
+    # noslip's matrix right-hand side M^-1 Jd^T (two triangular solves)
+    # at the shape of the 64 friction rows
     rhs = torch.randn(MANIP_NENV, m.nv, 64, device=d.qLD.device)
-    solve_mat_ms = _median_ms(lambda: torch.cholesky_solve(rhs, d.qLD))
+    solve_mat_ms = _median_ms(lambda: torch.linalg.solve_triangular(
+        d.qLD.mT, torch.linalg.solve_triangular(d.qLD, rhs, upper=False),
+        upper=True))
     phase("precise_stages", state="after the timed rollout", step_ms=step_ms,
           elliptic_solve_ms=solve_ms, noslip_ms=noslip_ms,
-          noslip_cholesky_solve_ms=solve_mat_ms, sensors_ms=sensor_ms,
+          noslip_triangular_solves_ms=solve_mat_ms, sensors_ms=sensor_ms,
           card=card)
     # chol_factor at the rollout's own mass matrices
     ferr = float((engine.smooth.factor_chol(d.qM) - d.qLD).abs().max())
@@ -1626,6 +1820,7 @@ def precise_main_path(card):
     phase("precise_main_path", scene="manip_bin6_precise.xml",
           nenv=MANIP_NENV, steps=nsteps,
           timed=f"1 rollout of {nsteps} steps after a 20-step warm-up",
+          timed_path="rollout_eager (the graph's: precise_graph)",
           launches=counts,
           launches_per_step={k: v / nsteps for k, v in counts.items()},
           finite=True, objects_in_bin=True,
@@ -1750,16 +1945,19 @@ def terrain_main_path(card):
     dw = mst.rollout(m, d0, nwarm, ctrl_fn=stir)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     _reset_counts()
     final = []
     with _Probe(capture_calls=(50, 100, 150, 200)) as probe:
-        times = _timed_rollouts(
-            lambda: final.append(mst.rollout(m, dw, nsteps, ctrl_fn=stir)), 1)
+        times = _timed_rollouts(lambda: final.append(
+            rollout_eager(m, dw, nsteps, ctrl_fn=stir)), 1)
     counts = _counts()
     d = final[0]
     for k in ("chol_solve", "hull_ref_face_depth", "mtv_query"):
         if counts[k] == 0:
             raise AssertionError(f"terrain: {k} was never launched")
+    graph_vs_eager("terrain", m, dw, nsteps, d, card, ctrl_fn=stir,
+                   need=("chol_solve", "graph_loop", "hull_ref_face_depth", "mtv_query"))
     # mtv_query runs once a step on the deep-pair slots; where no pair is
     # deep its lanes are empty slots (terrain_deep_pass drives live ones)
     if counts["mtv_query"] != nsteps:
@@ -1772,6 +1970,7 @@ def terrain_main_path(card):
     phase("terrain_main_path", scene="tendon_terrain.xml", nv=m.nv,
           ntendon=m.ntendon, nenv=MANIP_NENV, steps=nsteps,
           timed=f"1 rollout of {nsteps} steps after a {nwarm}-step warm-up",
+          timed_path="rollout_eager (the graph's: terrain_graph)",
           warmup_s=warm_s, launches=counts,
           launches_per_step={k: v / nsteps for k, v in counts.items()},
           finite=True, deep_slots_enabled=int(probe.enabled),
@@ -1815,11 +2014,12 @@ def terrain_deep_pass(m, d_end, nsteps=5):
     upright cylinder's top in every env, nsteps stirred steps: every step
     enables deep slots (the first in every env), and the exact query's
     inputs are captured at three of them."""
-    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     d0 = _rock_on_cylinder(m, d_end)
     _reset_counts()
     with _Probe(capture_calls=(1, 3, 5)) as probe:
-        d = mst.rollout(m, d0, nsteps, ctrl_fn=_stir_ranged(m, MANIP_NENV))
+        d = rollout_eager(m, d0, nsteps,
+                          ctrl_fn=_stir_ranged(m, MANIP_NENV))
         torch.cuda.synchronize()
     counts = _counts()
     bad = _float_leaves_finite(d)
@@ -2010,14 +2210,65 @@ def control_main_path(card):
 
     qa = torch.as_tensor(qadr, device=m.device)
     err0 = float((d.qpos[:, qa] - target).abs().max())
+    # the eager reference (step_with_control_eager), then the main path:
+    # step_with_control, one graph a step with the controller inside
+    from mujoco_sim_tpu_torch import engine
+    from mujoco_sim_tpu_torch.ops import loops
+    from mujoco_sim_tpu_torch.utils import graph
+    d0, st0 = d, st
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    de, se = d0, st0
+    for _ in range(nsteps):
+        de, se = engine.step_with_control_eager(m, de, ctrl, se)
+    torch.cuda.synchronize()
+    eager_s = (time.perf_counter() - t0) / nsteps
+    graph.clear_all()
     _reset_counts()
+    loops.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(nsteps):
         d, st = mst.step_with_control(m, d, ctrl, st)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = _counts()
+    counts = dict(_counts(), graph_loop=loops.LAUNCHES)
+    diffs = {k: float((getattr(d, k) - getattr(de, k)).abs().max())
+             for k in ("qpos", "qvel", "qacc_warmstart")}
+    diffs["err_int"] = float((st.err_int - se.err_int).abs().max())
+    if any(v != 0.0 for v in diffs.values()):
+        raise AssertionError(f"control: graph vs eager {diffs}")
+    g = graph.cached("control", ctrl, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dd, ss = d, st
+    for _ in range(20):
+        dd, ss = mst.step_with_control(m, dd, ctrl, ss)
+    torch.cuda.synchronize()
+    graph_s = (time.perf_counter() - t0) / 20
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mst.step_with_control(m, d, ctrl, st)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g_dev, g_ops = _profiled_device_ms(
+        lambda: [mst.step_with_control(m, d, ctrl, st) for _ in range(5)], 5)
+    e_dev, e_ops = _profiled_device_ms(
+        lambda: engine.step_with_control_eager(m, d, ctrl, st), 1)
+    phase("control_graph", steps=nsteps, nenv=n, held="bit for bit",
+          max_abs_diff=diffs, launches=counts,
+          eager=dict(env_steps_per_s=n / eager_s,
+                     host_ms_per_step=eager_s * 1e3, device_ms_per_step=e_dev,
+                     device_busy_share=e_dev / (eager_s * 1e3),
+                     cuda_ops_per_step=e_ops),
+          graph=dict(env_steps_per_s=n / graph_s,
+                     host_ms_per_step=graph_s * 1e3,
+                     device_ms_per_step=g_dev,
+                     device_busy_share=g_dev / (graph_s * 1e3),
+                     cuda_ops_per_step=g_ops, host_syncs_per_step=0,
+                     replays_per_step=1, sync_free_replay=True,
+                     pool_mb=g.last.pool_mb, capture_s=g.last.capture_s),
+          card=card)
     bad = _float_leaves_finite(d)
     if bad:
         raise AssertionError(f"control: non-finite leaves: {bad}")
@@ -2114,18 +2365,26 @@ def spawn_main_path(card):
     inactive = [_ball_qadr(m, nm) for nm in ("2_sball", "3_sball")]
     q_inactive0 = torch.cat([d0.qpos[:, a:a + 7] for a in inactive], 1)
 
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     _reset_counts()
     torch.cuda.synchronize()
-    # the solves of a step in the air and of two steps at rest are kept
+    # the eager reference; the solves of a step in the air and of two
+    # steps at rest are kept
     with _Probe(capture_calls=(50, 150, 250)) as probe:
-        t0 = time.perf_counter()
-        d100 = mst.rollout(m, d0, 100)
+        d100 = rollout_eager(m, d0, 100)
+        d = rollout_eager(m, d100, 200)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        d = mst.rollout(m, d100, 200)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
     launches = _counts()["chol_solve"]
+    # the main path: parallel.rollout through the step graph, held to it
+    graph_counts = graph_vs_eager("spawn", m, d0, 300, d, card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d100 = mst.rollout(m, d0, 100)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    d = mst.rollout(m, d100, 200)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
     if launches < 300:
         raise AssertionError(f"spawn: chol_solve ran {launches} times in "
                              "300 steps")
@@ -2193,6 +2452,11 @@ def spawn_main_path(card):
     ba[half:, m.names.body_id("1_sball")] = False
     d3 = mst.rollout(m, d.replace(body_active=ba), 20)
     torch.cuda.synchronize()
+    flip_dev = float((d3.qpos - rollout_eager(
+        m, d.replace(body_active=ba), 20).qpos).abs().max())
+    if flip_dev != 0.0:
+        raise AssertionError(f"spawn: the graph after the mask flip is "
+                             f"{flip_dev} from the eager rollout")
     if not _same_consts(before, _consts(m)):
         raise AssertionError("spawn: the plan cache changed when the masks "
                              "flipped")
@@ -2207,10 +2471,11 @@ def spawn_main_path(card):
     steps_s = t2 - t1
     phase("spawn_main_path", scene="world_empty.xml + 4 x spawn_ball.xml, "
           "Euler, slots 2_* and 3_* inactive", nenv=n, steps=300,
-          timed="the last 200 of 300 steps",
+          timed="the last 200 of 300 graph steps",
           step_ms=1e3 * steps_s / 200, first_100_steps_s=t1 - t0,
           env_steps_per_s=n * 200 / steps_s,
           chol_launches=launches, chol_launches_per_step=launches / 300,
+          graph_launches=graph_counts, mask_flip_graph_vs_eager=flip_dev,
           max_rest_dev=zdev, inactive_still=True, healthy=True,
           saturated=0, auto_reset_mended=POISONED,
           checkpoint_mb=ck_mb, checkpoint_round_trip_s=ck_s,
@@ -2288,6 +2553,41 @@ def _alive(srv):
         raise AssertionError(f"server: the sim thread died:\n{srv.sim_error}")
 
 
+def _server_step_vs_eager(srv, sim, capture_calls):
+    """Between two of the sim thread's steps (under its lock): one eager
+    step at the simulation's state with the kernels' inputs kept at
+    ``capture_calls``, and one call of the simulation's step graph at the
+    same state, held to it bit for bit, under set_sync_debug_mode("error")
+    (it raises at any host sync).  Returns the probe and the record."""
+    from mujoco_sim_tpu_torch import engine
+    with srv._lock:
+        d = sim.d
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _Probe(capture_calls=capture_calls) as probe:
+            de = engine.step(sim.m, d)
+            torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            dg = sim.step_graph(sim.m, d)
+            torch.cuda.synchronize()
+            graph_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    diffs = {k: float((getattr(dg, k) - getattr(de, k)).abs().max())
+             if getattr(dg, k).numel() else 0.0 for k in GRAPH_FIELDS}
+    if any(v != 0.0 for v in diffs.values()):
+        raise AssertionError(f"server: graph step vs eager step {diffs}")
+    cap = sim.step_graph.last
+    return probe, dict(held="bit for bit", max_abs_diff=diffs,
+                       sync_free_replay=True, eager_step_ms=eager_ms,
+                       graph_step_ms=graph_ms, pool_mb=cap.pool_mb,
+                       capture_s=cap.capture_s,
+                       captures=sim.step_graph.captures)
+
+
 def server_main_path(card):
     """One env on the RK4 world, as the reference runs it, served over TCP
     on a free local port: the scenario of tests/test_server.py through the
@@ -2325,25 +2625,28 @@ def server_main_path(card):
                 "pose": [0.6 * np.cos(a), 0.6 * np.sin(a), 0.5,
                          1, 0, 0, 0]}])["names"]
         t_stream, steps0 = time.perf_counter(), srv.steps
-        launches0 = _counts()["chol_solve"]
         stream = _Timed(srv.port)
-        # the sim thread's solves (nv = 24) at its first step and about
-        # 100 and 200 steps on: RK4 runs collision 4 times a step
-        with _Probe(capture_calls=(1, 400, 800)) as probe_balls:
-            for msg in stream.c.subscribe(["object_states"], rate=30.0):
-                if msg["object_states"]["time"] >= 0.6:
-                    break
-                if time.perf_counter() - t_stream > SERVER_DEADLINE:
-                    raise AssertionError("server: sim time did not reach "
-                                         f"0.6 s in {SERVER_DEADLINE} s")
+        for msg in stream.c.subscribe(["object_states"], rate=30.0):
+            if msg["object_states"]["time"] >= 0.6:
+                break
+            if time.perf_counter() - t_stream > SERVER_DEADLINE:
+                raise AssertionError("server: sim time did not reach "
+                                     f"0.6 s in {SERVER_DEADLINE} s")
         wall = time.perf_counter() - t_stream
         stream.close()
         nsteps = srv.steps - steps0
-        chol_window = _counts()["chol_solve"] - launches0
+        # the sim thread steps through its step graph: the wrappers count
+        # its warm-up call and its capture, not its replays
+        graph_launches = _counts()
         _alive(srv)
-        if nsteps == 0 or chol_window < nsteps:
-            raise AssertionError(f"server: {chol_window} chol_solve launches "
-                                 f"in {nsteps} sim-thread steps")
+        if nsteps == 0 or graph_launches["chol_solve"] == 0:
+            raise AssertionError(f"server: {graph_launches} launches for "
+                                 f"{nsteps} sim-thread steps")
+        # the sim thread's graph step held to the eager step at its own
+        # state (under the lock, between two of its steps), and the
+        # solves (nv = 24) of that eager step kept: RK4 runs collision 4
+        # times a step
+        probe_balls, graph_balls = _server_step_vs_eager(srv, sim, (1, 3))
         state = c.call("get_state", names=names)
         zs = [o["pose"]["position"][2] for o in state["objects"]]
         if len(zs) != 3 or max(abs(z - BALL_REST_Z) for z in zs) > \
@@ -2400,13 +2703,14 @@ def server_main_path(card):
             raise AssertionError("server: a registered class hot-swapped")
         top = sim.by_public_name[cube1[0]].qpos_adr + 2
         _until(lambda: float(sim.d.qpos[0, top]) < 0.32, "cube landing")
-        sat0, steps1 = hull_sat.LAUNCHES, srv.steps
-        # the solves (nv = 36 after the swap) and the cubes' face SAT at
-        # the first, the 11th and the 19th of these steps
-        with _Probe(capture_calls=(1, 41, 73)) as probe_cubes:
-            _until(lambda: srv.steps >= steps1 + 20, "20 steps after")
+        steps1 = srv.steps
+        _until(lambda: srv.steps >= steps1 + 20, "20 steps after")
+        # the solves (nv = 36 after the swap) and the cubes' face SAT of
+        # an eager step at the sim thread's state, 20 steps on
+        sat0 = hull_sat.LAUNCHES
+        probe_cubes, graph_cubes = _server_step_vs_eager(srv, sim, (1, 3))
         sat_launches = hull_sat.LAUNCHES - sat0
-        sat_steps = srv.steps - steps1
+        sat_steps = 1
         if sat_launches == 0:
             raise AssertionError("server: no hull_ref_face_depth launch "
                                  "with the two cubes in contact")
@@ -2436,7 +2740,9 @@ def server_main_path(card):
           "at 30 Hz, from the spawn of three balls to sim time 0.6 s",
           steps_per_s=nsteps / wall, rtf=nsteps * dt / wall,
           window_steps=nsteps, window_s=wall,
-          chol_launches_per_step=chol_window / nsteps,
+          step="the sim thread's step graph (one replay a step)",
+          graph_launches=graph_launches,
+          graph_vs_eager=dict(balls=graph_balls, cube_pair=graph_cubes),
           get_state_latency=lat_idle,
           get_state_latency_with_30hz_subscriber=lat_sub,
           service_request_ms=service_ms, hot_swap_request_ms=swap_ms,
@@ -2516,7 +2822,8 @@ def loop_main_path(card):
     phase("loop_main_path", scene="world_empty.xml (RK4) + 2 balls, one env",
           sim_s=float(d.time[0]), wall_s=wall, rtf=loop.rtf,
           nominal_dt=nominal, max_dt=loop.max_dt,
-          settled_dt=loop.current_dt, card=card)
+          settled_dt=loop.current_dt,
+          step_graph_captures=loop.step_graph.captures, card=card)
 
 
 # ----------------------------------------------------------- parallel path
@@ -2544,20 +2851,62 @@ def parallel_main_path(card):
     nsteps = 300
     run = pmesh.make_sharded_rollout(mR, mesh, nsteps)
 
-    # a. the sharded rollout, with two steps of each shard's solves kept
+    # a. the eager sharded rollout (each shard's rollout_eager), with two
+    # steps of each shard's solves kept: the reference of the sharded
+    # graphs
+    from mujoco_sim_tpu_torch.ops import loops
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     _reset_counts()
     torch.cuda.synchronize()
     with _Probe(capture_calls=[k * nsteps + s for k in range(
             PARALLEL_SHARDS) for s in (20, 250)]) as probe:
         t0 = time.perf_counter()
-        out = run(mR, dS)
+        eager = [rollout_eager(mR.on(dv), sh, nsteps)
+                 for dv, sh in zip(mesh.local_devices, dS.shards)]
         torch.cuda.synchronize()
-        sharded_s = time.perf_counter() - t0
+        eager_sharded_s = time.perf_counter() - t0
     launches = _counts()["chol_solve"]
     if launches < PARALLEL_SHARDS * 2 * nsteps:
         raise AssertionError(f"parallel: chol_solve ran {launches} times "
                              f"in {nsteps} steps of {PARALLEL_SHARDS} "
                              "shards")
+    # the main path: make_sharded_rollout, one step graph per shard, held
+    # to the eager shards bit for bit; then timed on its captured graphs
+    _reset_counts()
+    loops.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(mR, dS)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    graph_counts = dict(_counts(), graph_loop=loops.LAUNCHES)
+    shard_diff = max(float((o.qpos - e.qpos).abs().max()) for o, e in
+                     zip(out.shards, eager))
+    if shard_diff != 0.0:
+        raise AssertionError(f"parallel: sharded graphs vs eager shards "
+                             f"{shard_diff}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(mR, dS)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run.graphs[0](mR.on("cuda:0"), dS.shards[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    pools = [g.last.pool_mb for g in run.graphs]
+    phase("parallel_graph", steps=nsteps, shards=PARALLEL_SHARDS,
+          held="bit for bit, shard by shard", max_abs_diff_qpos=shard_diff,
+          launches=graph_counts, sync_free_replay=True,
+          eager=dict(env_steps_per_s=NENV * nsteps / eager_sharded_s,
+                     host_ms_per_step=eager_sharded_s / nsteps * 1e3),
+          graph=dict(env_steps_per_s=NENV * nsteps / sharded_s,
+                     host_ms_per_step=sharded_s / nsteps * 1e3,
+                     first_call_s=first_s, pool_mb_per_shard=pools,
+                     capture_s=[g.last.capture_s for g in run.graphs]),
+          card=card)
+    mst.rollout(m, d0, 1)          # its capture, outside the timing
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = mst.rollout(m, d0, nsteps)
@@ -2612,11 +2961,17 @@ def parallel_main_path(card):
     reads = cache["read_s"]
     rate_chunked = NENV * n_eg / min(times["c"])
     rate_egress = NENV * n_eg / min(times["e"])
+    ref_traj = traj.cpu().numpy()
     for got_final, host in collected:
-        if not (np.array_equal(host, traj.cpu().numpy())
+        if not (np.array_equal(host, ref_traj)
                 and torch.equal(got_final.qpos, final.qpos)):
-            raise AssertionError("egress: the chunked trajectory differs "
-                                 "from the one-call rollout_traj")
+            dev_step = np.abs(host - ref_traj).max(axis=(1, 2))
+            raise AssertionError(
+                "egress: the chunked trajectory differs from the one-call "
+                f"rollout_traj: final {float((got_final.qpos - final.qpos).abs().max())}, "
+                f"first differing step {int(np.flatnonzero(dev_step)[0]) + 1 if dev_step.any() else None}, "
+                f"max {float(dev_step.max())}, steps 1-3 {dev_step[:3].tolist()}, "
+                f"64-66 {dev_step[63:66].tolist()}")
 
     # the sharded batch egresses shard by shard into its env columns, as
     # benchmarks/scaling.py egresses its sharded batch: equal bit for bit
@@ -2794,9 +3149,10 @@ def main(argv):
         fact_err, fact_t = chol_factor_vs_plain()
         fsat_err, fsat_t, fsat_launches = face_sat_vs_plain()
         rand_err = kernels_vs_plain()
+        gl_err, gl_t = graph_loop_vs_plain()
     if want("box"):
         m, qpos, qvel, box_launches, d_rest = box_main_path(card)
-        box_integrators(m, d_rest)
+        box_integrators(m, d_rest, card)
         box_cross_check(m, qpos, qvel)
         second_scene()
     if want("pile"):
@@ -2850,7 +3206,8 @@ def main(argv):
     kernels = [
         dict(name="chol_solve", route="cuda", source=src + "chol_solve.cu",
              replaces="mujoco_sim_tpu/ops/pallas_chol.py:40",
-             launches=counts["chol_solve"], max_abs_err=chol_err,
+             launches=GRAPH_COUNTS["manip"]["chol_solve"],
+             launches_eager=counts["chol_solve"], max_abs_err=chol_err,
              terrain_capture=tsolves,
              ms=c42["ms"], device_ms=c42["device_ms"],
              plain_ms=c42["plain_ms"],
@@ -2871,7 +3228,8 @@ def main(argv):
         dict(name="hull_ref_face_depth", route="cuda",
              source=src + "hull_sat.cu",
              replaces="mujoco_sim_tpu/ops/pallas_sat.py:40",
-             launches=counts["hull_ref_face_depth"],
+             launches=GRAPH_COUNTS["manip"]["hull_ref_face_depth"],
+             launches_eager=counts["hull_ref_face_depth"],
              launches_precise_path=pcounts["hull_ref_face_depth"],
              launches_terrain_path=tcounts["hull_ref_face_depth"],
              launches_runtime_cube_pair=cube_sat,
@@ -2889,7 +3247,8 @@ def main(argv):
                            bound_by=bm["bound_by"])),
         dict(name="mtv_query", route="cuda", source=src + "mtv_query.cu",
              replaces="mujoco_sim_tpu/ops/pallas_refine.py:73",
-             launches=counts["mtv_query"],
+             launches=GRAPH_COUNTS["manip"]["mtv_query"],
+             launches_eager=counts["mtv_query"],
              launches_precise_path=pcounts["mtv_query"],
              launches_terrain_path=tcounts["mtv_query"],
              launches_terrain_deep_pass=tdeep_counts["mtv_query"],
@@ -2923,7 +3282,8 @@ def main(argv):
         # timed on the mass matrices of that rollout's final state
         dict(name="chol_factor", route="cuda", source=src + "chol_factor.cu",
              replaces="benchmarks/pallas_chol_proto.py:24",
-             launches=pcounts["chol_factor"], max_abs_err=fact_err,
+             launches=GRAPH_COUNTS["precise"]["chol_factor"],
+             launches_eager=pcounts["chol_factor"], max_abs_err=fact_err,
              ms=fact_step_t["ms"], device_ms=fact_step_t["device_ms"],
              plain_ms=fact_step_t["plain_ms"],
              bound_ms=fact_step_t["bound_ms"],
@@ -2942,6 +3302,18 @@ def main(argv):
              device_ms=fsat_t["device_ms"],
              plain_ms=fsat_t["plain_ms"], bound_ms=fsat_t["bound_ms"],
              bound_by=fsat_t["bound_by"], library_ms=None),
+        # the predicate of every captured while loop (two launches a
+        # WHILE node: before it and at the end of its body); counted over
+        # the box path's graph rollout (its captures), and per path
+        dict(name="graph_loop", route="cuda", source=src + "graph_loop.cu",
+             replaces="mujoco_sim_tpu/ops/solver.py:373",
+             launches=GRAPH_COUNTS["manip"]["graph_loop"],
+             max_abs_err=gl_err,
+             launches_by_path={k: v["graph_loop"]
+                               for k, v in GRAPH_COUNTS.items()},
+             ms=gl_t["ms"], device_ms=gl_t["device_ms"],
+             plain_ms=gl_t["plain_ms"], bound_ms=gl_t["bound_ms"],
+             bound_by=gl_t["bound_by"], library_ms=gl_t["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,7 @@ def _render(args):
     from mujoco_sim_tpu_torch import engine
     from mujoco_sim_tpu_torch.models.compile import load_model
     from mujoco_sim_tpu_torch.parallel.rollout import rollout
+    from mujoco_sim_tpu_torch.utils.graph import StepGraph
     from mujoco_sim_tpu_torch.utils.struct import host_env
     from mujoco_sim_tpu_torch.viz.render import render_frame
 
@@ -60,7 +61,8 @@ def _render(args):
     device = args[args.index("--device") + 1] if "--device" in args \
         else "cuda"
     m = engine.put_model(load_model(path), torch.float32, device)
-    d = engine.forward(m, rollout(m, engine.make_data(m, 1), steps))
+    d = StepGraph(engine.forward)(m, rollout(m, engine.make_data(m, 1),
+                                             steps))
     hm, hd = host_env(m, d)
     render_frame(hm, hd, out)
     print(f"rendered {path} @ t={float(hd.time):.3f}s -> {out}")

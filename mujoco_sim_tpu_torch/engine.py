@@ -680,7 +680,7 @@ def _implicit(m: Model, d: Data, fast: bool) -> Data:
         cols = []
         for j in range(m.nv):
             tangent = torch.zeros_like(d.qvel)
-            tangent[:, j] = 1.0
+            tangent[:, j].fill_(1.0)
             cols.append(torch.func.jvp(frc_of_v, (d.qvel,), (tangent,))[1])
         dfrc_dv = torch.stack(cols, dim=-1)   # (B, nv, nv), nonsymmetric
         A = MhB + h * dfrc_dv
@@ -689,7 +689,9 @@ def _implicit(m: Model, d: Data, fast: bool) -> Data:
             # J^T b J (MuJoCo folds it like joint damping)
             b = m.ten_damping.to(dtype)
             A = A + h * torch.diag_embed((b[:, None] * d.ten_J ** 2).sum(-2))
-        qacc = torch.linalg.solve(A, rhs)
+        # solve_ex: solve's factor without its error check, which reads
+        # the info flag on the host (a sync a captured step cannot make)
+        qacc = torch.linalg.solve_ex(A, rhs)[0]
     qvel = torch.where(_dof_active(m, d), d.qvel + h * qacc, 0.0)
     qpos = integrate_mod.integrate_pos(m, d.qpos, qvel, h)
     return d.replace(qpos=qpos, qvel=qvel, act=_advance_act(m, d, h),
@@ -768,14 +770,29 @@ def step2(m: Model, d: Data) -> Data:
     return _integrate(m, d)
 
 
-def step_with_control(m: Model, d: Data, ctrl_fn, *ctrl_args):
+def step_with_control_eager(m: Model, d: Data, ctrl_fn, *ctrl_args):
     """step1 -> controller -> step2: the controller sees this step's
     kinematics and velocities before the forces are applied.
-    ctrl_fn(m, d, *ctrl_args) -> (d, aux)."""
+    ctrl_fn(m, d, *ctrl_args) -> (d, aux).  The eager reference of
+    ``step_with_control``."""
     d = step1(m, d)
     d, aux = ctrl_fn(m, d, *ctrl_args)
     d = step2(m, d)
     return d, aux
+
+
+def step_with_control(m: Model, d: Data, ctrl_fn, *ctrl_args):
+    """``step_with_control_eager`` through a StepGraph of its own per
+    ctrl_fn (one CUDA graph a step on the card, the controller inside it;
+    as a caller of the JAX package jits it with ctrl_fn static).  Every
+    leaf of d and of ctrl_args is copied in, since a controller may read
+    any of them; ctrl_fn must be torch operations with no host read."""
+    from mujoco_sim_tpu_torch.utils import graph
+
+    g = graph.cached("control", ctrl_fn, lambda: graph.StepGraph(
+        lambda m_, d_, *a: step_with_control_eager(m_, d_, ctrl_fn, *a),
+        all_leaves=True))
+    return g(m, d, *ctrl_args)
 
 
 def inverse(m: Model, d: Data, qacc: torch.Tensor) -> torch.Tensor:

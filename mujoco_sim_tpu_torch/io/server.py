@@ -119,7 +119,6 @@ class SimServer:
 
     # ---------------- sim thread ----------------
     def _sim_worker(self):
-        from mujoco_sim_tpu_torch import engine
         from mujoco_sim_tpu_torch.control import controllers as C
 
         odom_cfgs = {r: cfg.get("odom") for r, cfg in self.robots.items()
@@ -134,7 +133,10 @@ class SimServer:
                         cmd = self.cmd_vel.get(robot)
                         if cmd is not None:
                             d = C.set_odom_vels(self.sim.m, d, ocfg, cmd)
-                    self.sim.d = engine.step(self.sim.m, d)
+                    # the step graph (captured here, under the lock, on
+                    # the first step and after a hot swap)
+                    self.sim.d = d
+                    self.sim.step()
                     self.steps += 1
                 if period:
                     rest = period - (time.perf_counter() - t0)

@@ -1220,7 +1220,7 @@ def collision(m: Model, d: Data) -> Data:
     attr_k = ohf @ cand_attr
     # empty slots got all-zero rows; give them a unit normal and dim 1
     up = torch.zeros_like(nrm_k)
-    up[..., 2] = 1.0
+    up[..., 2].fill_(1.0)
     nrm_k = torch.where(valid[..., None], nrm_k, up)
     t1k, t2k = _make_tangents(nrm_k)
     frame = torch.stack([nrm_k, t1k, t2k], dim=-2)

@@ -46,6 +46,7 @@ KERNELS = {
     "mtv_query": ("mtv_query.cu", _NO_FMA),
     "support_minmax": ("support_minmax.cu", _NO_FMA),
     "face_sat": ("face_sat.cu", _NO_FMA),
+    "graph_loop": ("graph_loop.cu", ()),
 }
 HEADERS = ("support.cuh", "chol_factor.cuh", "async_copy.cuh", "face_sat.cuh")
 

@@ -10,17 +10,20 @@ computes the exact distance with a 3-slot simplex GJK:
 
   point_hull_closest(q, verts, mask, enabled) -> (dist, closest_point)
 
-The JAX package's ``lax.while_loop`` (cap 24 iterations) becomes masked
-iterations with a per-lane ``done`` mask: a finished or disabled lane
-keeps its state while the others iterate, and the loop leaves early once
-every lane is done (one host sync per iteration, as in the Newton loop of
-ops/solver.py).
+The JAX package's ``lax.while_loop`` (cap 24 iterations) goes through
+ops/loops.while_loop over the lanes, with the cap as a per-lane iteration
+count in the carry: a finished or disabled lane keeps its state while the
+others iterate, and the loop leaves as soon as every lane is done.  Eagerly
+that is one host sync an iteration; inside a captured step it is a
+conditional WHILE node with its predicate reduced on the card, so a replay
+runs only the iterations its lanes need and syncs nowhere.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mujoco_sim_tpu_torch.ops import loops
 from mujoco_sim_tpu_torch.ops.math import cross, norm
 
 _EPS = 1e-12
@@ -95,16 +98,17 @@ def point_hull_closest(q, verts, mask, enabled=None):
     s0 = _support(verts, mask, q - _center(verts, mask))
     # simplex slots start collapsed on s0; duplicates are handled by the
     # degeneracy-guarded triangle routine
-    a = b = c = p_best = s0
-    d_best = norm(q - s0)
     if enabled is None:
         done = torch.zeros(lead, dtype=torch.bool, device=q.device)
     else:
         done = ~enabled.expand(lead)
 
-    for _ in range(_MAX_IT):
-        if bool(done.all()):
-            break
+    def cond(c):
+        *_, done, it = c
+        return ~done & (it < _MAX_IT)
+
+    def body(c):
+        a, b, c_, p_best, d_best, _, it = c
         d = q - p_best
         dn = torch.clamp(norm(d), min=_EPS)
         w = _support(verts, mask, d)
@@ -114,8 +118,8 @@ def point_hull_closest(q, verts, mask, enabled=None):
         done_new = (gap < _TOL) | (dn <= 2 * _EPS)
         # the new simplex is the best of the three triangles containing w
         p1, _ = _closest_on_triangle(q, a, b, w)
-        p2, _ = _closest_on_triangle(q, a, c, w)
-        p3, _ = _closest_on_triangle(q, b, c, w)
+        p2, _ = _closest_on_triangle(q, a, c_, w)
+        p3, _ = _closest_on_triangle(q, b, c_, w)
         n1 = norm(q - p1)
         n2 = norm(q - p2)
         n3 = norm(q - p3)
@@ -125,16 +129,15 @@ def point_hull_closest(q, verts, mask, enabled=None):
         pick2 = (k == 1)[..., None]
         pick3 = (k == 2)[..., None]
         a2 = torch.where(pick3, b, a)
-        b2 = torch.where(pick2 | pick3, c, b)
+        b2 = torch.where(pick2 | pick3, c_, b)
         p_new = torch.where(pick2, p2, torch.where(pick3, p3, p1))
         d_new = torch.minimum(torch.minimum(n1, n2), n3)
         better = d_new < d_best
-        live = ~done
-        upd = live[..., None]
-        p_best = torch.where(upd & better[..., None], p_new, p_best)
-        d_best = torch.where(live & better, d_new, d_best)
-        a = torch.where(upd, a2, a)
-        b = torch.where(upd, b2, b)
-        c = torch.where(upd, w, c)
-        done = done | done_new
+        p_best = torch.where(better[..., None], p_new, p_best)
+        d_best = torch.where(better, d_new, d_best)
+        return a2, b2, w, p_best, d_best, done_new, it + 1
+
+    _, _, _, p_best, d_best, _, _ = loops.while_loop(cond, body, (
+        s0, s0, s0, s0, norm(q - s0), done,
+        torch.zeros(lead, dtype=torch.int32, device=q.device)))
     return d_best, p_best

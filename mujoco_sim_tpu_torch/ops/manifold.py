@@ -167,7 +167,7 @@ def _feature_poly(w, vm, n, s_ext, sign, fpl_w, fm, hid, hvalid, fpoly_tab,
     u = p1 - p0
     un2 = norm(u, keepdim=True)
     ex = torch.zeros_like(u)
-    ex[..., 0] = 1.0
+    ex[..., 0].fill_(1.0)
     uu = torch.where(un2 > 1e-9, u / torch.clamp(un2, min=1e-12), ex)
     side = cross(n, uu)
     delta = (1e-6 * rb)[..., None]
@@ -436,7 +436,7 @@ def exact_pair_contacts(pA, RA, hidA, cylA, pB, RB, hidB, cylB, enabled,
     # empty-slot zeros or table pads; nothing of them passes the selects)
     en = enabled
     up = torch.zeros_like(n)
-    up[..., 2] = 1.0
+    up[..., 2].fill_(1.0)
     dist = torch.where(en[..., None], dist, 1e9)
     pos = torch.where(en[..., None, None], pos, 0.0)
     n = torch.where(en[..., None], n, up)

@@ -30,7 +30,7 @@ def norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
 
 def _ident_quat(like: torch.Tensor) -> torch.Tensor:
     q = torch.zeros_like(like)
-    q[..., 0] = 1.0
+    q[..., 0].fill_(1.0)
     return q
 
 

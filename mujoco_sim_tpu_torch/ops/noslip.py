@@ -23,8 +23,11 @@ of a row is its residual against the running qacc, the clipped delta and
 the qacc update.
 
 It needs the factor of the mass matrix itself (qLD, ops/chol_factor.py)
-for the matrix right-hand side B = M^-1 Jd^T; that solve is one library
-call (torch.cholesky_solve) on every device.
+for the matrix right-hand side B = M^-1 Jd^T; that solve is two
+triangular solves (torch.linalg.solve_triangular: LAPACK's trsm on the
+CPU, bit for bit what torch.cholesky_solve computes there; cuBLAS's
+batched trsm on the card, which a CUDA graph captures, where
+torch.cholesky_solve goes through MAGMA, which cannot be captured).
 """
 
 from __future__ import annotations
@@ -92,7 +95,9 @@ def noslip(m: Model, d: Data) -> Data:
     Jp = J[:, rows_p]                                   # (B, nupd, nv)
     Jm = J[:, rows_m]
     Jd = torch.where(is_pair[:, None], Jp - Jm, Jp)     # update direction
-    Bd = torch.cholesky_solve(Jd.transpose(-1, -2), d.qLD)  # (B, nv, nupd)
+    Y = torch.linalg.solve_triangular(d.qLD, Jd.transpose(-1, -2),
+                                      upper=False)
+    Bd = torch.linalg.solve_triangular(d.qLD.mT, Y, upper=True)  # (B,nv,nupd)
     BdT = Bd.transpose(-1, -2).contiguous()             # (B, nupd, nv)
     Add = (Jd * BdT).sum(-1)                            # row curvatures
     denom = torch.clamp(Add, min=1e-12)

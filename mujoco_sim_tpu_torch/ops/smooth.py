@@ -119,7 +119,7 @@ def kinematics(m: Model, qpos: torch.Tensor, mocap_pos=None, mocap_quat=None):
     mocap_on = bool(mocap_pos is not None and m.nmocap)
     plan = _fk_plan(m, mocap_on, dtype)
     ident4 = torch.zeros((1, 4), dtype=dtype, device=qpos.device)
-    ident4[0, 0] = 1.0
+    ident4[0, 0].fill_(1.0)
     body_pos = m.body_pos.to(dtype)
     body_quat = m.body_quat.to(dtype)
 
@@ -199,7 +199,7 @@ def kinematics(m: Model, qpos: torch.Tensor, mocap_pos=None, mocap_quat=None):
         xaxis = mm.rot_vec_quat(axis_l, Gj[..., 3:])
         xanchor = torch.where(is_f, free_pos, xanchor)
         zaxis = torch.zeros_like(xaxis)
-        zaxis[..., 2] = 1.0
+        zaxis[..., 2].fill_(1.0)
         xaxis = torch.where(is_f, zaxis, xaxis)
     else:
         xanchor = torch.zeros((B, 0, 3), dtype=dtype, device=qpos.device)
@@ -291,7 +291,7 @@ def com_pos(m: Model, kin: dict, mass=None, inertia=None):
             for i in range(3):
                 col = torch.zeros((B, len(jsel), 6), dtype=dtype,
                                   device=xipos.device)
-                col[..., 3 + i] = 1.0
+                col[..., 3 + i].fill_(1.0)
                 cdof[:, dadr + i] = col
             R = kin["xmat"][:, b]
             for i in range(3):

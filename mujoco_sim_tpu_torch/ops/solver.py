@@ -19,16 +19,16 @@ mu_v = mu0/sqrt(impratio):
 
 Batched loops.  The JAX solver is written per env; under vmap its
 ``lax.while_loop``s run the body for every env while ANY env's predicate
-holds and keep the carry of finished envs unchanged.  Here each loop runs
-masked iterations over the env axis: ``carry = where(active, new, old)``,
-then ``active &= cond(carry)``, until no env is active — so every env's
-result equals its unbatched result.  Finished envs may compute garbage
-(even NaN) in the discarded branch; ``torch.where`` selects and never
-multiplies by a mask.  The ``.any()`` test is one host sync per Newton and
-per line-search iteration; that is accepted for now (CUDA-graph capture of
-the step is later work, ROADMAP).  The elliptic line search's bracket
-expansion has a fixed cap of 8 doublings and runs all 8 masked, without a
-sync.
+holds and keep the carry of finished envs unchanged.  Here the Newton
+loop, the pyramidal line search and the elliptic bracket search go through
+ops/loops.while_loop, which has exactly those semantics over the env axis
+(``carry = where(active, new, old)``, ``active = cond(carry)``), so every
+env's result equals its unbatched result.  Eagerly each iteration's exit
+test is one host sync; inside a captured step (utils/graph.StepGraph) each
+loop is a conditional WHILE node whose predicate is reduced on the card,
+the line search's node nested in the Newton node's body, and the step
+syncs nowhere.  The elliptic line search's bracket expansion has a fixed
+cap of 8 doublings and runs all 8 masked, as straight-line code.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ import torch
 
 from mujoco_sim_tpu_torch.models.model import (Model, Data, DisableBit,
                                                 ConeType, contact_rows_per)
-from mujoco_sim_tpu_torch.ops import chol
+from mujoco_sim_tpu_torch.ops import chol, loops
 
 
 def _is_elliptic(m: Model) -> bool:
@@ -286,20 +286,22 @@ def solve(m: Model, d: Data) -> Data:
                                               curv_floor, live)
             return alpha, Jp, c_a, c_h
 
-        # pyramidal: plain 1D Newton on phi' — a masked batched while loop
+        # pyramidal: plain 1D Newton on phi' — a batched while loop
         # (envs outside `live` only ever produce discarded results)
-        alpha = torch.ones_like(pMp)
-        it = torch.zeros(pMp.shape, dtype=torch.int32, device=pMp.device)
-        d1 = torch.full_like(pMp, 1e30)
-        active = c1(it, d1) & live
-        while bool(active.any()):
+        def ls_cond(c):
+            _, it, d1 = c
+            return c1(it, d1) & live
+
+        def ls_body(c):
+            alpha, it, d1 = c
             d1n, d2n = phi_d(alpha)
             step = d1n / torch.maximum(d2n, curv_floor)
-            alpha = torch.where(active, torch.clamp(alpha - step, 0.0, 8.0),
-                                alpha)
-            it = torch.where(active, it + 1, it)
-            d1 = torch.where(active, d1n, d1)
-            active = active & c1(it, d1)
+            return torch.clamp(alpha - step, 0.0, 8.0), it + 1, d1n
+
+        alpha, _, _ = loops.while_loop(ls_cond, ls_body, (
+            torch.ones_like(pMp),
+            torch.zeros(pMp.shape, dtype=torch.int32, device=pMp.device),
+            torch.full_like(pMp, 1e30)))
         alpha = torch.where(torch.isfinite(alpha), alpha, 0.0)
         alpha = torch.clamp(alpha, 0.0, 8.0)
         return alpha, Jp, phi_cost(alpha), phi_cost(torch.full_like(pMp, 0.5))
@@ -340,18 +342,19 @@ def solve(m: Model, d: Data) -> Data:
     x = torch.where(take_warm[:, None], x_warm, x_smooth)
     cost = torch.where(take_warm, c_warm, c_smooth)
 
-    # Newton iterations: a masked batched while loop over the env axis
-    it = torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)
-    done = torch.zeros(cost.shape, dtype=torch.bool, device=cost.device)
-    active = (it < m.opt.solver_iterations) & ~done
-    while bool(active.any()):
-        a_n, x_n, cost_n, done_n = newton_body(a, x, cost, active)
-        a = torch.where(active[:, None], a_n, a)
-        x = torch.where(active[:, None], x_n, x)
-        cost = torch.where(active, cost_n, cost)
-        done = torch.where(active, done_n, done)
-        it = torch.where(active, it + 1, it)
-        active = active & (it < m.opt.solver_iterations) & ~done
+    # Newton iterations: a batched while loop over the env axis
+    def newton_cond(c):
+        *_, done, it = c
+        return (it < m.opt.solver_iterations) & ~done
+
+    def newton_step(c):
+        a, x, cost, _, it = c
+        return (*newton_body(a, x, cost, newton_cond(c)), it + 1)
+
+    a, x, cost, _, _ = loops.while_loop(newton_cond, newton_step, (
+        a, x, cost,
+        torch.zeros(cost.shape, dtype=torch.bool, device=cost.device),
+        torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)))
 
     efc_force, qfrc_constraint = constraint_force_from_qacc(m, d, a, jar=x)
     return d.replace(qacc=a, qfrc_constraint=qfrc_constraint,
@@ -378,22 +381,23 @@ def _bracket_search(phi_d, phi_cost, c1, pMp, curv_floor, live):
     # if phi' never turned positive, take the largest bracketed alpha
     alpha = torch.where(d1hi < 0, hi, 0.5 * (lo + hi))
 
-    it = torch.zeros(pMp.shape, dtype=torch.int32, device=pMp.device)
-    d1 = torch.full_like(pMp, 1e30)
-    active = c1(it, d1) & live
-    while bool(active.any()):
+    def cond(c):
+        *_, d1, it = c
+        return c1(it, d1) & live
+
+    def body(c):
+        lo, hi, alpha, _, it = c
         d1n, d2n = phi_d(alpha)
         lo_n = torch.where(d1n < 0, alpha, lo)
         hi_n = torch.where(d1n < 0, hi, alpha)
         newton = alpha - d1n / torch.maximum(d2n, curv_floor)
         inside = (newton > lo_n) & (newton < hi_n) & torch.isfinite(newton)
         alpha_n = torch.where(inside, newton, 0.5 * (lo_n + hi_n))
-        lo = torch.where(active, lo_n, lo)
-        hi = torch.where(active, hi_n, hi)
-        alpha = torch.where(active, alpha_n, alpha)
-        d1 = torch.where(active, d1n, d1)
-        it = torch.where(active, it + 1, it)
-        active = active & c1(it, d1)
+        return lo_n, hi_n, alpha_n, d1n, it + 1
+
+    _, _, alpha, _, _ = loops.while_loop(cond, body, (
+        lo, hi, alpha, torch.full_like(pMp, 1e30),
+        torch.zeros(pMp.shape, dtype=torch.int32, device=pMp.device)))
     alpha = torch.where(torch.isfinite(alpha), alpha, 0.0)
     alpha = torch.clamp(alpha, 0.0, 256.0)
     return alpha, phi_cost(alpha), phi_cost(torch.full_like(pMp, 0.5))

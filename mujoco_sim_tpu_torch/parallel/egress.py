@@ -1,15 +1,15 @@
 """Trajectory egress with device-to-host overlap (port of
 mujoco_sim_tpu/parallel/egress.py).
 
-A rollout runs in chunks.  After each chunk's rollout_traj the compute
-stream records an event; a copy stream of the same device waits on it and
-copies the chunk into one of two pinned host buffers, without blocking.
-The host goes on to dispatch chunk k+1 and waits on chunk k's copy only
-before it reads it out, so the copies overlap the next chunk's compute.
-The step's own host syncs (the solver's and GJK's loop exits) wait for
-the compute stream only, so the copy on its own stream is not held up by
-them.  The JAX package gets the same overlap from async dispatch and
-``copy_to_host_async``.
+A rollout runs in chunks.  A chunk is ``chunk`` replays of one shard's
+step graph (parallel/mesh.traj_graph: each replay writes its step's row
+of the chunk's trajectory buffer on the card, with no host sync).  After
+each chunk the compute stream records an event; a copy stream of the same
+device waits on it and copies the chunk into one of two pinned host
+buffers, without blocking.  The host goes on to dispatch chunk k+1 and
+waits on chunk k's copy only before it reads it out, so the copies
+overlap the next chunk's compute.  The JAX package gets the same overlap
+from async dispatch and ``copy_to_host_async``.
 
 A process holds only its own shards (parallel/mesh.py), so it egresses
 only them, shard by shard into the env columns they hold.
@@ -92,11 +92,11 @@ def rollout_collect(m: Model, dB: Data, nsteps: int, chunk: int = 64,
     replicate_model).  Returns (final Data or Sharded, host trajectory:
     a numpy array, or a tuple/list/dict of them, stacked over steps, with
     this process's envs in env order).  jit_cache, when given, keeps the
-    copy streams and pinned buffers for the next call (there is no jit
-    in the port), and under "read_s" the host seconds each chunk's
-    read-out took in this call (the wait on its copies and the copy out
-    of the pinned buffers)."""
-    extract = extract or (lambda d: d.qpos)
+    shards' step graphs, the copy streams and the pinned buffers for the
+    next call, and under "read_s" the host seconds each chunk's read-out
+    took in this call (the wait on its copies and the copy out of the
+    pinned buffers)."""
+    extract = extract or pmesh._qpos
     nchunks, rem = divmod(nsteps, chunk)
     if rem:
         raise ValueError(f"nsteps={nsteps} not a multiple of chunk={chunk}")
@@ -106,6 +106,12 @@ def rollout_collect(m: Model, dB: Data, nsteps: int, chunk: int = 64,
     devs = dB.mesh.local_devices if sharded else (dB.qpos.device,)
     models = [pmesh._model_for(m, dev) for dev in devs]
     egress = [_Egress(i, dev, cache) for i, dev in enumerate(devs)]
+    graphs = []
+    for i in range(len(devs)):
+        key = ("graph", i, extract)
+        if key not in cache:
+            cache[key] = pmesh.traj_graph(extract)
+        graphs.append(cache[key])
     out, rebuild, cols = None, None, []
     reads = cache["read_s"] = []
 
@@ -118,8 +124,8 @@ def rollout_collect(m: Model, dB: Data, nsteps: int, chunk: int = 64,
     for k in range(nchunks):
         for i, (dev, mi) in enumerate(zip(devs, models)):
             with pmesh._on(dev):
-                shards[i], traj = pmesh.rollout_traj(mi, shards[i], chunk,
-                                                     extract)
+                shards[i], traj = pmesh.rollout_traj(
+                    mi, shards[i], chunk, extract, graphs[i])
             leaves, rebuild = pmesh._flatten(traj)
             if k == 0:
                 start = cols[-1].stop if cols else 0

@@ -17,7 +17,11 @@ every process, a process holds only its own shards, and the ring exchange
 crosses processes with point-to-point sends.
 
 ``batched_step`` and ``rollout``, the single-device part, live in
-parallel/rollout.py and are re-exported here.
+parallel/rollout.py and are re-exported here.  Every step here runs
+through utils/graph.StepGraph, as the JAX package jits its sharded step
+and rollout: one graph per shard (each shard has its own input buffers and
+pool), and ``rollout_traj`` writes each step's observation into its row
+of a trajectory buffer inside the graph.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from mujoco_sim_tpu_torch.models.model import Model, Data
 from mujoco_sim_tpu_torch.parallel.rollout import (  # noqa: F401
     _carry, batched_step, rollout,
 )
+from mujoco_sim_tpu_torch.utils import graph
 from mujoco_sim_tpu_torch.utils.struct import map_leaves
 
 
@@ -197,34 +202,42 @@ def _flatten(tree):
     raise TypeError(f"extract must return tensors, got {type(tree)}")
 
 
-def rollout_traj(m: Model, dB: Data, nsteps: int, extract=None):
+def _qpos(d):
+    return d.qpos
+
+
+def traj_graph(extract=None) -> graph.StepGraph:
+    """A StepGraph of the batched step that records extract(d) (default
+    qpos) after every step; rollout_traj takes one per shard."""
+    return graph.StepGraph(engine.step, record=extract or _qpos, keep=2)
+
+
+def rollout_traj(m: Model, dB: Data, nsteps: int, extract=None,
+                 step_graph: graph.StepGraph | None = None):
     """Rollout that also stacks per-step observations on the device.
 
     extract(d) -> a tensor (or a tuple/list/dict of tensors) of the state
     after a step; default qpos.  Returns (final Data, trajectory with a
     leading [nsteps] axis).  As in the JAX package, the last entry is the
-    final full step's, and nsteps <= 1 takes one step."""
-    extract = extract or (lambda d: d.qpos)
-    carry = _carry(dB)
-    obs = []
-    for _ in range(max(1, nsteps)):
-        d = batched_step(m, dB.replace(**carry))
-        leaves, rebuild = _flatten(extract(d))
-        obs.append(leaves)
-        carry = _carry(d)
-    return d, rebuild([torch.stack(xs) for xs in zip(*obs)])
+    final full step's, and nsteps <= 1 takes one step.  step_graph: the
+    traj_graph(extract) to replay (a cached one when None)."""
+    g = step_graph or graph.cached("traj", extract,
+                                   lambda: traj_graph(extract))
+    return g.run(m, dB, n=max(1, nsteps))
 
 
 def scan_reduced(step_fn, init, nsteps: int):
-    """``nsteps`` applications of ``step_fn`` to a carry.
+    """``nsteps`` applications of ``step_fn`` to a carry, through one
+    StepGraph of step_fn (its result must have the carry's structure).
 
     The JAX version prunes the carry to the leaves step_fn reads and
-    returns the others stale; eager PyTorch carries unread leaves for
-    free, so here every leaf of the result is fresh."""
-    carry = init
-    for _ in range(nsteps):
-        carry = step_fn(carry)
-    return carry
+    returns the others stale; here every leaf of the result is fresh (a
+    Data carry passes its RECURRENT leaves from step to step)."""
+    if nsteps <= 0:
+        return init
+    g = graph.cached("scan", step_fn,
+                     lambda: graph.StepGraph(lambda _, c: step_fn(c)))
+    return g.run(None, init, n=nsteps)
 
 
 def _check(dS: Sharded, mesh: EnvMesh):
@@ -235,29 +248,35 @@ def _check(dS: Sharded, mesh: EnvMesh):
 
 
 def _per_shard(mesh: EnvMesh, fn):
-    """Callable (m, dS) -> dS applying fn(model, shard) to each shard on
-    its device, in turn (m from replicate_model, or a Model on the
-    shards' one device)."""
+    """Callable (m, dS) -> dS applying fn(graph, model, shard) to each
+    shard on its device, in turn, with a StepGraph of the step for each
+    shard (m from replicate_model, or a Model on the shards' one
+    device)."""
+    graphs = [graph.StepGraph(engine.step) for _ in mesh.local]
+
     def run(m_, dS: Sharded) -> Sharded:
         _check(dS, mesh)
         out = []
-        for dev, d in zip(mesh.local_devices, dS.shards):
+        for g, dev, d in zip(graphs, mesh.local_devices, dS.shards):
             with _on(dev):
-                out.append(fn(_model_for(m_, dev), d))
+                out.append(fn(g, _model_for(m_, dev), d))
         return Sharded(out, mesh)
 
+    run.graphs = graphs
     return run
 
 
 def make_sharded_step(m: Model, mesh: EnvMesh):
     """Callable (m, dS) -> dS: one batched step of each shard."""
-    return _per_shard(mesh, batched_step)
+    return _per_shard(mesh, lambda g, m_, d: g(m_, d))
 
 
 def make_sharded_rollout(m: Model, mesh: EnvMesh, nsteps: int):
-    """Callable (m, dS) -> dS: parallel/rollout.rollout of each shard,
-    carrying the recurrent leaves as it does."""
-    return _per_shard(mesh, lambda m_, d: rollout(m_, d, nsteps))
+    """Callable (m, dS) -> dS: ``nsteps`` steps of each shard, carrying the
+    recurrent leaves as parallel/rollout.rollout does."""
+    if nsteps <= 0:
+        return _per_shard(mesh, lambda g, m_, d: d)
+    return _per_shard(mesh, lambda g, m_, d: g.run(m_, d, n=nsteps))
 
 
 def _ring_p2p(pos, quat, mesh: EnvMesh, device):

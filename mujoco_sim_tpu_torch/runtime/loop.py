@@ -6,8 +6,13 @@ wall clock, trailing-window real-time-factor, timestep doubled when >1 ms
 behind (capped at max_time_step) and halved back to nominal when caught
 up.  Option.timestep is a tensor leaf, so retiming builds nothing anew.
 
-The sim time is read once a step (on the card each read waits for the
-step to finish).  Throughput mode (real_time=False) runs free.
+The step runs through utils/graph.StepGraph (one CUDA graph a step on
+the card, as the JAX loop jits it).  A new timestep is a new model, which
+the graph must not read stale: each timestep the governor uses keeps its
+model object, and the graph keeps one capture per model, so moving
+between timesteps captures each once.  The sim time is read once a step
+(on the card each read waits for the step to finish).  Throughput mode
+(real_time=False) runs free.
 """
 
 from __future__ import annotations
@@ -19,6 +24,11 @@ import torch
 
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.model import Model, Data
+from mujoco_sim_tpu_torch.utils.graph import StepGraph
+
+# captures the governor keeps: the nominal timestep and its doublings up to
+# max_time_step (2^7 = 128x nominal)
+_DT_LEVELS = 8
 
 
 class SimLoop:
@@ -35,14 +45,18 @@ class SimLoop:
         self._start_wall = None
         self._start_sim = None
         self.current_dt = self.nominal_dt
+        self._models = {self.nominal_dt: m}
+        self.step_graph = StepGraph(engine.step, keep=_DT_LEVELS)
 
     def _set_dt(self, dt: float):
         if dt != self.current_dt:
             self.current_dt = dt
-            ts = self.m.opt.timestep
-            opt = self.m.opt.replace(
-                timestep=torch.tensor(dt, dtype=ts.dtype, device=ts.device))
-            self.m = self.m.replace(opt=opt)
+            if dt not in self._models:
+                ts = self.m.opt.timestep
+                opt = self.m.opt.replace(timestep=torch.tensor(
+                    dt, dtype=ts.dtype, device=ts.device))
+                self._models[dt] = self.m.replace(opt=opt)
+            self.m = self._models[dt]
 
     def run(self, sim_seconds: float):
         """Advance sim time by sim_seconds with pacing + governor."""
@@ -54,7 +68,7 @@ class SimLoop:
         while sim_t < end_time:
             if self.controller is not None:
                 self.d = self.controller(self.m, self.d)
-            self.d = engine.step(self.m, self.d)
+            self.d = self.step_graph(self.m, self.d)
             sim_t = float(self.d.time[0])
             now = time.perf_counter()
             sim_elapsed = sim_t - self._start_sim

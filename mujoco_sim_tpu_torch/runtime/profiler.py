@@ -87,11 +87,15 @@ def _sync(d):
 
 def stage_timings(m, d, repeats: int = 20) -> dict:
     """Wall-time each pipeline stage of the step (diagnostics), in
-    seconds per call.  Each stage runs on the previous fwd stage's output;
-    on the card each timing ends with a synchronize, so it holds the
-    device time, not only the launches."""
+    seconds per call.  Each stage is a StepGraph of its own (one CUDA
+    graph on the card, as the JAX profiler jits each stage), copying in
+    every leaf of its input, and runs on the previous fwd stage's output;
+    the first call (warm-up and capture) is not timed.  On the card each
+    timing ends with a synchronize, so it holds the device time, not only
+    the launches."""
     from mujoco_sim_tpu_torch import engine
     from mujoco_sim_tpu_torch.ops import solver as solver_mod
+    from mujoco_sim_tpu_torch.utils.graph import StepGraph
 
     stages = {
         "fwd_position": engine.fwd_position,
@@ -103,11 +107,12 @@ def stage_timings(m, d, repeats: int = 20) -> dict:
     out = {}
     cur = d
     for name, fn in stages.items():
-        res = fn(m, cur)
+        g = StepGraph(fn, all_leaves=True)
+        res = g(m, cur)
         _sync(cur)
         t0 = time.perf_counter()
         for _ in range(repeats):
-            res = fn(m, cur)
+            g(m, cur)
         _sync(cur)
         out[name] = (time.perf_counter() - t0) / repeats
         if name.startswith("fwd"):

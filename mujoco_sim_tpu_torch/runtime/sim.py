@@ -8,7 +8,11 @@ state is preserved exactly, spawn is atomic w.r.t. stepping, destroy
 returns final states, and the model and its plans are not rebuilt.
 
 The port's Data always carries a leading env axis, so a ``Simulation``
-holds one env as ``make_data(m, 1)``.  Every edit is functional: a leaf is
+holds one env as ``make_data(m, 1)``.  Its step and its reset's forward
+run through utils/graph.StepGraph (one CUDA graph a step on the card, as
+the JAX package jits them); spawn and destroy flip Data masks and
+overrides between steps, which the graph copies in on every call, and a
+hot swap makes new graphs for the new model.  Every edit is functional: a leaf is
 cloned before it is written and the clone is ``replace``d into a new Data,
 because a server snapshot or the sim thread may still hold the old one.
 
@@ -28,6 +32,7 @@ import torch
 
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.model import Model, Data, GeomType, JointType
+from mujoco_sim_tpu_torch.utils.graph import StepGraph
 
 
 class NameAllocator:
@@ -239,6 +244,8 @@ class Simulation:
         m = _on_device(m, dtype, device)
         self.m = m
         self.d = engine.make_data(m, 1, dtype)
+        self.step_graph = StepGraph(engine.step)
+        self.forward_graph = StepGraph(engine.forward)
         self.names = NameAllocator(m.names.body)
         self.slots: dict[str, list[SpawnSlot]] = {}
         self.by_public_name: dict[str, SpawnSlot] = {}
@@ -468,7 +475,7 @@ class Simulation:
         d = d.replace(qpos=qpos, qvel=qvel,
                       qacc=torch.zeros_like(d.qacc),
                       time=torch.zeros_like(d.time))
-        self.d = engine.forward(m, d)
+        self.d = self.forward_graph(m, d)
         return self.d
 
     def reset_full(self):
@@ -479,6 +486,7 @@ class Simulation:
         return self.d
 
     def step(self, n: int = 1):
-        for _ in range(n):
-            self.d = engine.step(self.m, self.d)
+        """n steps of the step graph from the current Data."""
+        if n > 0:
+            self.d = self.step_graph.run(self.m, self.d, n=n)
         return self.d

@@ -14,6 +14,7 @@ import torch
 import mujoco_sim_tpu_torch as mst
 from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat, hull_sat,
                                       manifold, mtv_query, support_minmax)
+from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
 from mujoco_sim_tpu_torch.utils import kernel_cases
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
@@ -144,7 +145,8 @@ def test_step_on_card_runs_the_kernel(cuda_device):
     qpos = d.qpos.clone()
     qpos[:, 2] = 0.1                         # start just above the floor
     before = chol.LAUNCHES
-    d = mst.rollout(m, d.replace(qpos=qpos), 20)
+    # the eager rollout: a graph replay runs without the wrappers
+    d = rollout_eager(m, d.replace(qpos=qpos), 20)
     torch.cuda.synchronize()
     assert chol.LAUNCHES - before > 2 * 20
     assert bool((d.qLD == 0).all())
@@ -375,9 +377,10 @@ def test_manip_rollout_on_card_runs_the_collision_kernels(cuda_device):
     phase = torch.tensor(np.random.default_rng(1).uniform(0, 6.28, (64, m.nu)),
                          dtype=torch.float32, device=cuda_device)
     before = hull_sat.LAUNCHES, mtv_query.LAUNCHES, chol.LAUNCHES
-    d = mst.rollout(m, d, 20,
-                    ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
-                                                 + phase))
+    # the eager rollout: a graph replay runs without the wrappers
+    d = rollout_eager(m, d, 20,
+                      ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
+                                                   + phase))
     torch.cuda.synchronize()
     assert hull_sat.LAUNCHES - before[0] == 2 * 20
     assert mtv_query.LAUNCHES - before[1] == 20
@@ -540,9 +543,11 @@ def test_precise_rollout_on_card_factors_once_per_step(cuda_device):
     phase = torch.tensor(np.random.default_rng(1).uniform(0, 6.28, (32, m.nu)),
                          dtype=torch.float32, device=cuda_device)
     before = chol_factor.LAUNCHES, hull_sat.LAUNCHES, face_sat.LAUNCHES
-    d = mst.rollout(m, d, 20,
-                    ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
-                                                 + phase))
+    # the eager rollout: a graph replay runs without the wrappers, which
+    # count only its warm-up call and its capture
+    d = rollout_eager(m, d, 20,
+                      ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
+                                                   + phase))
     torch.cuda.synchronize()
     assert chol_factor.LAUNCHES - before[0] == 20
     assert hull_sat.LAUNCHES - before[1] == 2 * 20
@@ -585,7 +590,7 @@ def test_terrain_rollout_on_card_runs_the_kernels(cuda_device):
                          dtype=torch.float32, device=cuda_device)
     cr = m.actuator_ctrlrange
     before = hull_sat.LAUNCHES, mtv_query.LAUNCHES, chol.LAUNCHES
-    d = mst.rollout(m, d, 20, ctrl_fn=lambda d_: cr[:, 0] + (
+    d = rollout_eager(m, d, 20, ctrl_fn=lambda d_: cr[:, 0] + (
         cr[:, 1] - cr[:, 0]) * (0.5 + 0.5 * torch.sin(
             4.0 * d_.time[:, None] + phase)))
     torch.cuda.synchronize()
@@ -649,7 +654,9 @@ def test_sharded_rollout_on_one_card_matches_unsharded(cuda_device):
     before = chol.LAUNCHES
     out = pmesh.make_sharded_rollout(mR, mesh, 50)(
         mR, pmesh.shard_batch(d, mesh))
-    assert chol.LAUNCHES - before >= 4 * 2 * 50
+    # one step graph a shard: the wrappers count each shard's warm-up call
+    # and capture (at least two solves each), not the replays
+    assert chol.LAUNCHES - before >= 4 * 2 * 2
     ref = mst.rollout(m, d, 50)
     torch.testing.assert_close(out.gather().qpos, ref.qpos, rtol=0,
                                atol=5e-4)
@@ -688,3 +695,85 @@ def test_rollout_collect_on_card_equals_rollout_traj(cuda_device):
         for (f, _), g in zip(own, got_final.shards):
             assert torch.equal(g.qpos, f.qpos)
     assert len(cache["read_s"]) == 3
+
+
+# ----------------------------------------------------- the compiled step
+
+def _stirred(m, nenv, seed=1):
+    phase = torch.tensor(np.random.default_rng(seed).uniform(
+        0, 6.28, (nenv, m.nu)), dtype=torch.float32, device="cuda")
+    return (lambda d_: torch.sin(4.0 * d_.time[:, None] + phase)) \
+        if m.nu else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,nenv", [("floor_box.xml", 64),
+                                        ("manip_bin6.xml", 32)])
+def test_step_graph_matches_eager_on_card(scene, nenv, cuda_device):
+    """rollout (one CUDA graph a step, the solver's and GJK's loops as
+    WHILE nodes) against rollout_eager over 15 steps: bit for bit, since
+    both run the same kernels on the same inputs at the same shapes; and
+    one replay under set_sync_debug_mode("error"), which raises at any
+    host sync."""
+    from mujoco_sim_tpu_torch.parallel.rollout import step_graph
+    m = mst.put_model(mst.load_model(str(FIXTURES / scene)))
+    d = _dropped_boxes(m, nenv) if scene == "floor_box.xml" else \
+        mst.make_data(m, nenv)
+    ctrl_fn = _stirred(m, nenv)
+    ref = rollout_eager(m, d, 15, ctrl_fn=ctrl_fn)
+    got = mst.rollout(m, d, 15, ctrl_fn=ctrl_fn)
+    for k in ("qpos", "qvel", "qacc_warmstart", "time"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_graph(ctrl_fn)(m, got)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_nested_while_nodes_captured(cuda_device):
+    """A while loop inside a while loop's body, as the line search runs
+    inside a Newton iteration, captured as nested WHILE nodes: the replay
+    equals the eager loops on two inputs, with per-env trip counts that
+    differ, and each node launches the predicate kernel twice at
+    capture."""
+    from mujoco_sim_tpu_torch.ops import loops
+    from mujoco_sim_tpu_torch.utils.graph import StepGraph
+    rng = np.random.default_rng(0)
+    x0 = torch.tensor(rng.uniform(0, 1, (300, 3)), dtype=torch.float32,
+                      device=cuda_device)
+    lim = torch.tensor(rng.integers(0, 30, 300), dtype=torch.int32,
+                       device=cuda_device)
+
+    def fn(_, x, lim):
+        def body(c):
+            x, i = c
+            y, k = loops.while_loop(
+                lambda cc: (cc[0].sum(-1) > 0.01) & (cc[1] < 5),
+                lambda cc: (cc[0] * 0.5, cc[1] + 1),
+                (x + 1.0, torch.zeros_like(i)))
+            return y + k[:, None].float(), i + 1
+        return loops.while_loop(lambda c: c[1] < lim, body,
+                                (x, torch.zeros_like(lim)))
+
+    g = StepGraph(fn)
+    before = loops.LAUNCHES
+    for x in (x0, 2.0 * x0):
+        got, ref = g(None, x, lim), fn(None, x, lim)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert torch.equal(got[1], lim)
+    assert g.captures == 1 and g.replays == 2
+    assert loops.LAUNCHES - before == 4
+
+
+@pytest.mark.cuda
+def test_graph_loop_predicate_matches_any(cuda_device):
+    from mujoco_sim_tpu_torch.ops import loops
+    for n in (1, 255, 256, 4096, 40960):
+        for k in (None, 0, n - 1):
+            mask = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+            if k is not None:
+                mask[k] = True
+            assert int(loops.any_cuda(mask)) == int(loops.any_plain(mask))
