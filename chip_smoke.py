@@ -16,8 +16,14 @@ tendon transmissions, fluid drag, tendon sensors, a heightfield ray;
 its kernels held to their twins at the inputs its step gave them, and
 the exact query driven on live lanes by a pass with the rock set into
 the cylinder), the manipulation arm under the computed-torque controller at 1024 envs
-(step1 -> pd_accel -> apply_control -> step2), and the runtime on the
-in-repo world (tests/fixtures/world_empty.xml): the spawn scene of four
+(step1 -> pd_accel -> apply_control -> step2), BASELINE config 3 (the
+mobile base: benchbot.xml with odom joints on the in-repo world at 1024
+envs, 500 steps of the PD arm and set_odom_vels through
+parallel/mesh.scan_reduced), BASELINE config 5 at its scale (the
+manipulation scene at 8192 and 65 536 envs, each in one graph on one
+card, its kernels held to their twins on the launches' rows at both ends
+of the batch, its first 1024 envs against the 1024-env batch), and the
+runtime on the in-repo world (tests/fixtures/world_empty.xml): the spawn scene of four
 balls at 4096 envs with the batch services (health, auto_reset,
 checkpoint, masks flipped mid-rollout), the TCP server at one env on the
 RK4 world driven by the port's client (spawn, stream, destroy, reset,
@@ -37,11 +43,15 @@ the mesh, the egress, the simulation and the server does; each step
 phase also runs the eager rollout of the same steps (the reference its
 launch counts and kernel captures come from), holds the graph's final
 state to it bit for bit, replays one step under
-torch.cuda.set_sync_debug_mode("error") and prints both paths'
-env-steps/s, host and device ms a step, device busy share and the
-graph's pool.  Builds the seven hand-written kernels from the checkout's
-own sources, holds each against its plain PyTorch twin, and checks the
-results.  Run from the root of a checkout, with one card:
+torch.cuda.set_sync_debug_mode("error"), counts the hand-written kernels
+its replays launch on the card (in a second capture of the same step
+with the count adds in it; no graph that is timed counts) and holds each
+count to the eager steps' over the same steps from the same state (the
+wrappers' counts and the card's), and prints both paths' env-steps/s
+(also over the same steps from the same state), host and device ms a
+step, device busy share and the graph's pool.  Builds the seven hand-written kernels from the
+checkout's own sources, holds each against its plain PyTorch twin, and
+checks the results.  Run from the root of a checkout, with one card:
 
     python3 chip_smoke.py
 
@@ -53,9 +63,11 @@ record (JSON); the last line is
 
 ``python3 chip_smoke.py build kernels`` runs only the named phases (of
 env, build, kernels, box, pile, manip, precise, bighull, terrain,
-control, runtime, parallel) and prints no final record: a quick check of
-the kernels alone; ``build runtime`` is the quick check of the runtime,
-``build parallel`` that of the mesh, the egress and the exporters.
+control, mobile, manip_scale, runtime, parallel) and prints no final
+record: a quick check of the kernels alone; ``build runtime`` is the
+quick check of the runtime, ``build parallel`` that of the mesh, the
+egress and the exporters, ``build mobile manip_scale`` that of
+BASELINE configs 3 and 5.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -92,7 +105,9 @@ NENV = 4096
 # batch; scripts/torch_batch_bits.py: first at step 65, 4.2e-7 in qpos).
 # The sharded rollout is held to SHARD_TOL, set from its own readings:
 # qpos 4.8e-5 and 1.1e-4 from the unsharded rollout after 300 steps
-# (PERF.md section 6, four card runs), and about 4x the larger.  It is held
+# (PERF.md section 6, four card runs), and about 4x the larger; since the
+# run was cut to 150 steps (the boxes have landed by then) it is held
+# after 150.  It is held
 # at every step of a 128-step sharded trajectory as well, through the
 # boxes' landing (a 0.5-0.8 m fall lands at steps 65-82), so a fault that
 # moves only the transients shows and is not settled away.
@@ -325,7 +340,7 @@ def _cuda(x, dtype=torch.float32):
 
 # --------------------------------------------------------------- chol_solve
 
-def compare_chol_step(A, b, what):
+def compare_chol_step(A, b, what, x=None):
     """chol_solve kernel on a step's own SPD systems.  Mass and Newton
     matrices reach condition numbers of 1e5 with |x| spread over many
     decades inside one system, so an f32 solve's error scales with the
@@ -334,9 +349,12 @@ def compare_chol_step(A, b, what):
     ||b - A x|| / (||A|| ||x|| eps) <= CHOL_BWD_RATIO (infinity norms, eps
     the unit roundoff), and (2) a forward error against an f64 solve, over
     each system's largest |x|, within CHOL_FWD_FACTOR times the plain f32
-    twin's on the same systems.  Returns the measures."""
+    twin's on the same systems.  ``x``: the kernel's solution where it
+    was launched on a larger batch (these systems' rows of it), else the
+    kernel is launched here.  Returns the measures."""
     from mujoco_sim_tpu_torch.ops import chol
-    x = chol.chol_solve_cuda(A, b)
+    if x is None:
+        x = chol.chol_solve_cuda(A, b)
     xp = chol.chol_solve_plain(A, b)
     A64, b64 = A.double(), b.double()
     x64 = torch.cholesky_solve(b64[..., None],
@@ -373,6 +391,12 @@ def compare_chol_step(A, b, what):
                              f"the largest |x|, plain twin {fwd_plain} "
                              f"({out})")
     return out
+
+
+def _chol_bound(N, n):
+    """chol_solve's bound: A, b read and x written once; the factor and
+    the two substitutions' flops."""
+    return _bound(N * (n * n + 2 * n) * 4, N * (n ** 3 / 3 + 2 * n * n))
 
 
 def chol_vs_plain():
@@ -426,8 +450,7 @@ def chol_vs_plain():
                  (66, MANIP_NENV), (128, 256)):
         A = _cuda(_spd(rng, N, n))
         b = torch.randn(N, n, device="cuda")
-        bound, by = _bound(N * (n * n + 2 * n) * 4,
-                           N * (n ** 3 / 3 + 2 * n * n))
+        bound, by = _chol_bound(N, n)
         timing[(n, N)] = dict(
             ms=_median_ms(lambda: chol.chol_solve_cuda(A, b)),
             device_ms=_graph_ms(lambda: chol.chol_solve_cuda(A, b)),
@@ -612,10 +635,12 @@ def _max_err(a, b):
         else 0.0
 
 
-def compare_hull_sat(pts, planes, K, mask, lateral, slack, what):
-    """Kernel vs twin on CUDA tensors; returns (max abs err, ties)."""
+def compare_hull_sat(pts, planes, K, mask, lateral, slack, what, got=None):
+    """Kernel vs twin on CUDA tensors; returns (max abs err, ties).
+    ``got``: the kernel's outputs where it was launched on a larger batch
+    (these instances' rows of them), else the kernel is launched here."""
     from mujoco_sim_tpu_torch.ops import hull_sat
-    dep, idx, nref, sep = hull_sat.hull_ref_face_depth_cuda(
+    dep, idx, nref, sep = got or hull_sat.hull_ref_face_depth_cuda(
         pts, planes, K, mask, lateral, slack)
     torch.cuda.synchronize()
     # the twin with one more pick: the (K+1)-th value says whether the K-th
@@ -693,16 +718,18 @@ _MTV_ORDER = ("wA", "wB", "heA", "heB", "hmA", "hmB", "nfA", "nfB", "fmA",
               "fmB", "RA", "RB", "pA", "pB", "cylA", "cylB")
 
 
-def compare_mtv(b, what, lanes=None):
+def compare_mtv(b, what, lanes=None, got=None):
     """mtv_query kernel and mtv_staged (support_minmax inside) vs the twin.
     ``lanes`` (bool) restricts the comparison (captured disabled slots hold
     empty tables).  A lane with no valid axis (the twin's depth is +inf:
     an empty deep slot) must equal the twin bit for bit: the kernel
     returns it without scanning.  Returns {name: (max abs depth err, axis
-    ties + lanes outside the tight band)}."""
+    ties + lanes outside the tight band)}.  ``got``: the kernel's
+    outputs where it was launched on a larger batch (these lanes' rows of
+    them), else the kernel is launched here."""
     from mujoco_sim_tpu_torch.ops import manifold, mtv_query
     args = [b[k] for k in _MTV_ORDER]
-    dep, n = mtv_query.mtv_query_cuda(*args)
+    dep, n = got or mtv_query.mtv_query_cuda(*args)
     torch.cuda.synchronize()
     V, F = b["wA"].shape[-2], b["nfA"].shape[-2]
     depT, nT = _plain_sliced(mtv_query.mtv_query_plain, args, 2 * F * V)
@@ -975,23 +1002,205 @@ def _timed_rollouts(run, reps):
 
 
 GRAPH_FIELDS = ("qpos", "qvel", "act", "qacc_warmstart")
-# phase -> the kernel counts of its graph main path (graph_vs_eager)
+# phase -> the wrappers' kernel counts over its graph main path: the
+# graph's warm-up call and its capture (path_vs_eager)
 GRAPH_COUNTS = {}
+# phase -> the hand-written kernels a replayed step launches, counted on
+# the card, and their device ms a step from the eager trace
+# (hold_replay_counts)
+REPLAY_COUNTS = {}
+REPLAY_MS = {}
+# the hand-written kernels by the names of their __global__ functions in
+# mujoco_sim_tpu_torch/csrc/ (tests/test_torch_graph.py checks that every
+# __global__ there is named here); the key is the wrapper module's count
+# in _counts(), graph_loop the WHILE nodes' predicate
+REPLAY_KERNELS = {
+    "chol_solve": ("chol_solve_kernel", "chol_solve_big_kernel"),
+    "chol_factor": ("chol_factor_kernel", "chol_factor_big_kernel"),
+    "hull_ref_face_depth": ("hull_sat_kernel",),
+    "face_sat_depth": ("face_sat_kernel",),
+    "mtv_query": ("mtv_query_kernel",),
+    "support_minmax": ("support_minmax_kernel",),
+    "graph_loop": ("set_any",),
+}
+_KERNEL_OF = {g: k for k, gs in REPLAY_KERNELS.items() for g in gs}
+_KERNEL_NAME = re.compile(r"(?<!\w)(" + "|".join(_KERNEL_OF) + r")(?!\w)")
 
 
-def _profiled_device_ms(fn, nsteps):
-    """Device time per step (ms) of fn() (nsteps steps) from
-    torch.profiler: the sum of the CUDA kernels and copies it ran, CUDA
-    graph replays' kernels included."""
+def _start_tracer():
+    """One short torch.profiler session before any graph is captured: the
+    trace of a graph captured before the process's first session showed
+    none of its WHILE bodies' kernels (box @4096: 1335 CUDA ops a replayed
+    step, against 2000-2046 with the session first), so the first graph
+    phase's device ms and CUDA ops a step read short."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+
+def _hand_written(name):
+    """The REPLAY_KERNELS key of a CUDA event's (demangled) kernel name, or
+    None for any other kernel or copy."""
+    hit = _KERNEL_NAME.search(name)
+    return _KERNEL_OF[hit.group(1)] if hit else None
+
+
+def _profile(fn, nsteps):
+    """torch.profiler over fn() (nsteps steps, CUDA graph replays' kernels
+    included): device ms and CUDA ops a step (the sum of the kernels and
+    copies it ran), and each hand-written kernel's launches and device ms
+    in all, by name."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.device_time for e in ev) / 1e3 / nsteps, len(ev) / nsteps
+    # the trace's own events: prof.events() would build PyTorch's event
+    # tree from them first, seconds for the ~10^5 kernels of a few steps
+    ev = [(e.name(), e.duration_ns() / 1e6)
+          for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA]
+    counts = dict.fromkeys(REPLAY_KERNELS, 0)
+    dev_ms = dict.fromkeys(REPLAY_KERNELS, 0.0)
+    for name, ms in ev:
+        k = _hand_written(name)
+        if k is not None:
+            counts[k] += 1
+            dev_ms[k] += ms
+    return dict(device_ms=sum(ms for _, ms in ev) / nsteps,
+                ops=len(ev) / nsteps, counts=counts, kernel_ms=dev_ms)
+
+
+def _graph_fields(x):
+    """The leaves a path's graph is held to its eager steps on, by name:
+    GRAPH_FIELDS of a Data, every leaf of another state (a carry's
+    PDState, as pd/<leaf>), and those of each part of a tuple or list
+    (prefixed with its index)."""
+    from mujoco_sim_tpu_torch.models.model import Data
+    from mujoco_sim_tpu_torch.utils.struct import leaves_with_keys
+    if isinstance(x, (tuple, list)):
+        return {f"{i}.{k}": v for i, part in enumerate(x)
+                for k, v in _graph_fields(part).items()}
+    if isinstance(x, Data):
+        return {k: getattr(x, k) for k in GRAPH_FIELDS}
+    return dict(leaves_with_keys(x, "pd"))
+
+
+def _diffs(fa, fb):
+    """max |a - b| of each field of two _graph_fields."""
+    return {k: float((v.double() - fb[k].double()).abs().max())
+            if v.numel() else 0.0 for k, v in fa.items()}
+
+
+def count_eager(eager, nsteps):
+    """eager() (nsteps eager steps) twice: under the profiler, counting
+    nothing (device ms and CUDA ops a step, each hand-written kernel's
+    device ms by name), then with the wrappers' counts (LAUNCHES) and the
+    counts on the card (cuda_build.counting) set to 0 just before and
+    read just after, its final fields kept: the reference of
+    hold_replay_counts."""
+    from mujoco_sim_tpu_torch.ops import cuda_build, loops
+    eag = _profile(eager, nsteps)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _reset_counts()
+    loops.LAUNCHES = 0
+    with cuda_build.counting(dev):
+        c0 = cuda_build.device_counts(dev)
+        out = eager()
+        c1 = cuda_build.device_counts(dev)
+    eag.update(wrappers=_counts(), loop_launches=loops.LAUNCHES,
+               on_card={k: c1[k] - c0[k] for k in REPLAY_KERNELS},
+               final={k: v.clone() for k, v in _graph_fields(out).items()})
+    return eag
+
+
+def hold_replay_counts(what, replay, eager, nsteps, eag=None):
+    """The hand-written kernels of a graph path's replays: replay() runs
+    nsteps replays of the path's graph from a state and returns where they
+    end, eager() the same nsteps eager steps from the same state (``eag``:
+    count_eager's record of eager(), taken before, e.g. before the
+    capture, so that the eager steps' memory and the graph's pool are not
+    held at once).  replay() is profiled first on the graph as the path
+    captured it, counting nothing: device ms and CUDA ops a step.  Then
+    every graph is dropped and replay() runs twice with counts kept on the
+    card (cuda_build.counting): its first call captures the graph again,
+    now with each wrapper's count add in it (a replay adds its launches, a
+    WHILE body's once an iteration), and the second call's replays are
+    counted.  They must end where the eager steps end, bit for bit, and
+    each kernel's count over them must equal the wrappers' count
+    (LAUNCHES) over the eager steps and the card's count over them: the
+    graph is bit-equal to eager, so the same data goes through the same
+    loops, however often a WHILE body runs.  The WHILE nodes' predicate
+    (graph_loop) has no eager launch and must only have run.  The counted
+    graph is dropped and the path's graph captured again without counts,
+    as the phase had it.
+    A kernel's device ms a launch is the mean of its launches in the eager
+    trace (the same launches on the same inputs).  Returns the replays'
+    profile (``counts``: the card's), the kernels' ms a launch and the
+    eager steps' device ms and CUDA ops a step."""
+    from mujoco_sim_tpu_torch.ops import cuda_build
+    from mujoco_sim_tpu_torch.utils import graph
+    eag = eag or count_eager(eager, nsteps)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rep = _profile(replay, nsteps)
+    # the dropped graph's pool goes back to the card before the counted
+    # capture's warm-up call (manip @65 536: 77.4 GB reserved without)
+    graph.clear_all()
+    torch.cuda.empty_cache()
+    with cuda_build.counting(dev):
+        replay()                               # the counted capture
+        c0 = cuda_build.device_counts(dev)
+        got = replay()
+        c1 = cuda_build.device_counts(dev)
+    graph.clear_all()
+    torch.cuda.empty_cache()
+    replay()                      # captured again, without counts
+    diffs = {k: v for k, v in _diffs(_graph_fields(got),
+                                     eag["final"]).items() if v != 0.0}
+    if diffs:
+        raise AssertionError(f"{what}: the counted replays vs the eager "
+                             f"steps from the same state: {diffs}")
+    on_card = {k: c1[k] - c0[k] for k in REPLAY_KERNELS}
+    eager_card = eag["on_card"]
+    if eag["loop_launches"] or eager_card["graph_loop"]:
+        raise AssertionError(f"{what}: the eager steps launched the WHILE "
+                             "predicate")
+    bad = {k: dict(replay=on_card[k], eager=n, eager_on_card=eager_card[k])
+           for k, n in eag["wrappers"].items()
+           if not on_card[k] == n == eager_card[k]}
+    if bad:
+        raise AssertionError(f"{what}: hand-written kernels in {nsteps} "
+                             f"replays vs {nsteps} eager steps: {bad}")
+    if on_card["graph_loop"] == 0:
+        raise AssertionError(f"{what}: no WHILE predicate ran in the "
+                             "replays")
+    rep["counts"] = on_card
+    # a kernel's device ms a launch: the mean of its launches that the
+    # eager trace shows
+    rep["eager_ms_per_launch"] = {
+        k: eag["kernel_ms"][k] / eag["counts"][k]
+        for k in REPLAY_KERNELS if eag["counts"][k]}
+    REPLAY_COUNTS[what] = {k: v / nsteps for k, v in on_card.items()}
+    REPLAY_MS[what] = {k: rep["eager_ms_per_launch"].get(k, 0.0)
+                       * REPLAY_COUNTS[what][k] for k in REPLAY_KERNELS}
+    rep["per_step"] = REPLAY_COUNTS[what]
+    rep["eager_device_ms"], rep["eager_ops"] = eag["device_ms"], eag["ops"]
+    return rep
+
+
+def _replay_record(rep, nsteps):
+    """The replay counts as a *_graph line prints them: the card's count
+    a step, held to eager's, and each kernel's mean device ms a launch in
+    the eager steps' trace."""
+    return dict(steps=nsteps, launches_per_step=rep["per_step"],
+                held="counted on the card in a capture of the same step "
+                     "with the count adds in it, equal to the eager steps' "
+                     "launches over the same steps from the same state, "
+                     "which its replays equal bit for bit (graph_loop: > 0)",
+                device_ms_per_launch=rep["eager_ms_per_launch"],
+                device_ms_from="the eager steps' trace (same launches, "
+                               "same inputs)")
 
 
 def _syncs_per_step(fn):
@@ -1008,93 +1217,131 @@ def _syncs_per_step(fn):
     return sum("synchroniz" in str(w.message).lower() for w in caught)
 
 
-def graph_vs_eager(what, m, d0, nsteps, eager_final, card, ctrl_fn=None,
-                   nenv=None, band=0.0, band_cause=None, eager_steps=10,
-                   need=("chol_solve", "graph_loop")):
-    """The phase's path through the step graph: mst.rollout (one CUDA
-    graph a step, captured on its first call, replayed in place) from d0
-    over the phase's nsteps, held field by field to eager_final (the
-    eager rollout_eager of the same steps from d0): bit for bit unless a
-    band is given with its cause.  The kernel counts are set to 0 just
-    before and read just after (the wrappers count the graph's warm-up
-    call and its capture; a replay runs without them).  Then one replay
-    under set_sync_debug_mode("error"), which raises at any host sync, the
-    graph's and the eager step's host time, device time and busy share,
-    host syncs a step, and the graph's pool.  Returns the counts."""
-    import mujoco_sim_tpu_torch as mst
+def _data_of(x):
+    """The Data of a path's state (a Data, or a carry that starts with
+    one)."""
+    return x[0] if isinstance(x, tuple) else x
+
+
+def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
+                  card, band=0.0, band_cause=None, eager_steps=10,
+                  need=("chol_solve", "graph_loop"), count_steps=3, then=0,
+                  **extra):
+    """A phase's path through its step graph: run(x, n) is the entry point
+    a user calls (n steps from x, one CUDA graph a step, captured on its
+    first call and replayed in place; graph_of() is its StepGraph) and
+    eager(x, n) the same steps as a Python loop of eager steps.  From x0
+    over nsteps, run is held to eager_final (eager(x0, nsteps), which the
+    caller ran) on _graph_fields: bit for bit unless a band is given with
+    its cause.  The kernel counts are set to 0 just before and read just
+    after (the wrappers count the graph's warm-up call and its capture; a
+    replay runs without them).  Then: the eager steps' and the graph's
+    host time over the same eager_steps steps from x0; one replay under
+    set_sync_debug_mode("error"), which raises at any host sync; host
+    syncs of an eager step; device time and busy share; the graph's pool;
+    and the hand-written kernels of count_steps replays from the graph's
+    final state held to as many eager steps from eager_final, the same
+    state (hold_replay_counts).  Every eager step runs before the
+    capture, and no graph that is timed counts launches.  The graph's
+    throughput is timed on a rollout of replays only: from x0 over nsteps
+    again, or ``then`` steps from the compared final state onwards.
+    Returns the wrappers' counts (``capture``), the replays' profile
+    (``replay``), the state the timed rollout ended in (``final``) and
+    the phase's line."""
     from mujoco_sim_tpu_torch.ops import loops
-    from mujoco_sim_tpu_torch.parallel.rollout import (rollout_eager,
-                                                       step_graph)
     from mujoco_sim_tpu_torch.utils import graph
-    nenv = nenv or d0.qpos.shape[0]
+    nenv = _data_of(x0).qpos.shape[0]
     graph.clear_all()
+    # the eager steps first: their cached blocks go back to the card
+    # before the capture (utils/graph), and are not held beside its pool
+    k = min(eager_steps, nsteps)
+    eager_s = min(_timed_rollouts(lambda: eager(x0, k), 1)) / k
+    eag = count_eager(lambda: eager(eager_final, count_steps), count_steps)
+    e_sync = _syncs_per_step(lambda: eager(eager_final, 1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     _reset_counts()
     loops.LAUNCHES = 0
     t0 = time.perf_counter()
-    d = mst.rollout(m, d0, nsteps, ctrl_fn=ctrl_fn)
+    x = run(x0, nsteps)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = dict(_counts(), graph_loop=loops.LAUNCHES)
     GRAPH_COUNTS[what] = counts
-    missing = [k for k in need if counts[k] == 0]
+    missing = [k_ for k_ in need if counts[k_] == 0]
     if missing:
         raise AssertionError(f"{what}: {missing} never launched on the "
                              "graph main path")
     peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
-    g = step_graph(ctrl_fn)
-    cap = g.last
-    diffs = {k: float((getattr(d, k).double()
-                       - getattr(eager_final, k).double()).abs().max())
-             if getattr(d, k).numel() else 0.0 for k in GRAPH_FIELDS}
-    bad = {k: v for k, v in diffs.items() if not v <= band}
+    cap = graph_of().last
+    pool_mb, capture_s = cap.pool_mb, cap.capture_s
+    del cap
+    diffs = _diffs(_graph_fields(x), _graph_fields(eager_final))
+    bad = {k_: v for k_, v in diffs.items() if not v <= band}
     if bad:
         raise AssertionError(f"{what}: graph rollout vs eager rollout over "
                              f"{nsteps} steps: {bad} > {band}")
-    if nsteps > 1 and _float_leaves_finite(d):
+    if nsteps > 1 and _float_leaves_finite(_data_of(x)):
         raise AssertionError(f"{what}: non-finite leaves in the graph run")
-    # replays only: the capture is made
+    # replays only: the capture is made; first over the eager steps
+    graph_k_s = min(_timed_rollouts(lambda: run(x0, k), 1)) / k
     t0 = time.perf_counter()
-    mst.rollout(m, d0, nsteps, ctrl_fn=ctrl_fn)
+    final = run(x, then) if then else run(x0, nsteps)
     torch.cuda.synchronize()
-    graph_s = (time.perf_counter() - t0) / nsteps
+    graph_s = (time.perf_counter() - t0) / (then or nsteps)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        g(m, d)
+        run(x, 1)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    k = min(eager_steps, nsteps)
-    t0 = time.perf_counter()
-    rollout_eager(m, d0, k, ctrl_fn=ctrl_fn)
-    torch.cuda.synchronize()
-    eager_s = (time.perf_counter() - t0) / k
-    g_dev, g_kern = _profiled_device_ms(lambda: g.run(m, d, n=5), 5)
-    e_dev, e_kern = _profiled_device_ms(
-        lambda: rollout_eager(m, d, 2, ctrl_fn=ctrl_fn), 2)
-    e_sync = _syncs_per_step(lambda: rollout_eager(m, d, 1, ctrl_fn=ctrl_fn))
+    rep = hold_replay_counts(what, lambda: run(x, count_steps), None,
+                             count_steps, eag)
     out = dict(
         steps=nsteps, nenv=nenv, held=("bit for bit" if band == 0.0
                                        else f"within {band}: {band_cause}"),
-        max_abs_diff=diffs, launches=counts,
+        max_abs_diff=diffs, launches_capture=counts, **extra,
+        replay_kernels=_replay_record(rep, count_steps),
+        same_steps=dict(steps=k, start="the phase's first state",
+                        eager_host_ms_per_step=eager_s * 1e3,
+                        graph_host_ms_per_step=graph_k_s * 1e3,
+                        graph_speedup=eager_s / graph_k_s),
         eager=dict(env_steps_per_s=nenv / eager_s, host_ms_per_step=eager_s
-                   * 1e3, device_ms_per_step=e_dev,
-                   device_busy_share=e_dev / (eager_s * 1e3),
-                   cuda_ops_per_step=e_kern, host_syncs_per_step=e_sync,
-                   timed_steps=k),
+                   * 1e3, device_ms_per_step=rep["eager_device_ms"],
+                   device_busy_share=rep["eager_device_ms"] / (eager_s
+                                                               * 1e3),
+                   cuda_ops_per_step=rep["eager_ops"],
+                   host_syncs_per_step=e_sync, timed_steps=k,
+                   device_ms_from=f"{count_steps} steps from the compared "
+                                  "final state"),
         graph=dict(env_steps_per_s=nenv / graph_s,
                    host_ms_per_step=graph_s * 1e3,
-                   device_ms_per_step=g_dev,
-                   device_busy_share=g_dev / (graph_s * 1e3),
-                   cuda_ops_per_step=g_kern, host_syncs_per_step=0,
+                   device_ms_per_step=rep["device_ms"],
+                   device_busy_share=rep["device_ms"] / (graph_s * 1e3),
+                   cuda_ops_per_step=rep["ops"], host_syncs_per_step=0,
                    replays_per_step=1, sync_free_replay=True,
-                   pool_mb=cap.pool_mb, peak_mb_over_rollout=peak_mb,
-                   capture_s=cap.capture_s, first_call_s=first_s),
+                   timed_steps=then or nsteps,
+                   timed_from=("the compared final state" if then
+                               else "the phase's first state"),
+                   pool_mb=pool_mb, peak_mb_over_rollout=peak_mb,
+                   capture_s=capture_s, first_call_s=first_s),
         card=card)
     phase(f"{what}_graph", **out)
-    return counts
+    return dict(capture=counts, replay=rep, final=final, line=out)
+
+
+def graph_vs_eager(what, m, d0, nsteps, eager_final, card, ctrl_fn=None,
+                   **kw):
+    """path_vs_eager for mst.rollout (the batched rollout a user calls)
+    against rollout_eager from d0, with ctrl_fn inside the step."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.parallel.rollout import (rollout_eager,
+                                                       step_graph)
+    return path_vs_eager(
+        what, lambda d, n: mst.rollout(m, d, n, ctrl_fn=ctrl_fn),
+        lambda d, n: rollout_eager(m, d, n, ctrl_fn=ctrl_fn),
+        lambda: step_graph(ctrl_fn), d0, nsteps, eager_final, card, **kw)
 
 
 def box_main_path(card):
@@ -1280,13 +1527,23 @@ def pile_main_path(card):
 
 # ----------------------------------------------------------- manip main path
 
-def _stir(nenv, nu, device, dtype, seed=1):
-    """bench.py's stir control: ctrl = sin(4 time + phase), phase seeded
-    per env and actuator."""
-    phase_ = torch.tensor(
-        np.random.default_rng(seed).uniform(0.0, 6.28, (nenv, nu)),
-        dtype=dtype, device=device)
+def _stir_phases(nenv, nu, seed=1):
+    """bench.py's stir phases, seeded per env and actuator (numpy): the
+    first rows of a larger batch's are a smaller batch's."""
+    return np.random.default_rng(seed).uniform(0.0, 6.28, (nenv, nu))
+
+
+def _stir_with(phases, device, dtype):
+    """bench.py's stir control: ctrl = sin(4 time + phase)."""
+    phase_ = torch.tensor(phases, dtype=dtype, device=device)
     return lambda d: torch.sin(4.0 * d.time[:, None] + phase_)
+
+
+def _stir(nenv, nu, device, dtype, seed=1, rows=None):
+    """The stir of a batch of nenv (``rows``: of those envs of it)."""
+    phases = _stir_phases(nenv, nu, seed)
+    return _stir_with(phases if rows is None else phases[rows], device,
+                      dtype)
 
 
 def _stir_ranged(m, nenv, seed=1):
@@ -1304,17 +1561,37 @@ class _Probe:
     functions, add no host round trip, and are taken off again: how many
     deep-pair slots were enabled, the largest ncon, and copies of the
     kernels' inputs (the SPD solves, the face SAT, the exact query) at a
-    few steps."""
+    few steps.  With ``rows`` (env indices) only those envs' inputs are
+    copied, beside the same envs' rows of what the launch on the whole
+    batch returned (``*_out``), the whole batch's shapes (``*_full``)
+    and, for the exact query, the live lanes of each of its rounds over
+    the whole batch: a batch too large to copy is held to the twins on
+    its first and last envs."""
 
-    def __init__(self, capture_calls=()):
+    def __init__(self, capture_calls=(), rows=None):
         from mujoco_sim_tpu_torch.ops import (chol, collision, hull_sat,
                                               manifold, mtv_query)
         self.mods = (chol, collision, hull_sat, manifold, mtv_query)
         self.enabled = torch.zeros((), dtype=torch.long, device="cuda")
         self.ncon_max = torch.zeros((), dtype=torch.int32, device="cuda")
         self.capture_calls = set(capture_calls)
+        self.rows = rows
         self.calls = 0
         self.sat, self.mtv, self.chol = [], [], []
+        self.sat_out, self.mtv_out, self.chol_out = [], [], []
+        self.sat_full, self.mtv_full = [], []
+
+    def _take(self, x, nenv, rows=None):
+        """A copy of x, of its rows' entries where it has the env axis."""
+        rows = self.rows if rows is None else rows
+        if not isinstance(x, torch.Tensor):
+            return x
+        if rows is not None and x.dim() and x.shape[0] == nenv:
+            return x[rows].clone()
+        return x.clone()
+
+    def _outs(self, out, nenv, rows=None):
+        return tuple(self._take(o, nenv, rows) for o in out)
 
     def __enter__(self):
         chol, collision, hull_sat, manifold, mtv_query = self.mods
@@ -1322,11 +1599,16 @@ class _Probe:
                       hull_sat.hull_ref_face_depth_cuda,
                       manifold.exact_pair_contacts)
         real_chol, real_col, real_sat, real_epc = self.saved
+        some = self.rows is not None
 
         def solve(A, b):
+            x = real_chol(A, b)
             if self.calls in self.capture_calls:
-                self.chol.append((A.clone(), b.clone()))
-            return real_chol(A, b)
+                n = A.shape[0]
+                self.chol.append((self._take(A, n), self._take(b, n)))
+                if some:
+                    self.chol_out.append(self._take(x, n))
+            return x
 
         def col(m, d):
             self.calls += 1
@@ -1335,21 +1617,43 @@ class _Probe:
             return out
 
         def sat(pts, planes, k, mask=None, lateral=False, slack=0.0):
+            out = real_sat(pts, planes, k, mask, lateral, slack)
             if self.calls in self.capture_calls:
-                self.sat.append((pts.clone(), planes.clone(), k,
-                                 None if mask is None else mask.clone(),
-                                 lateral, slack.clone() if isinstance(
-                                     slack, torch.Tensor) else slack))
-            return real_sat(pts, planes, k, mask, lateral, slack)
+                n = pts.shape[0]
+                self.sat.append((self._take(pts, n), self._take(planes, n),
+                                 k, self._take(mask, n), lateral,
+                                 self._take(slack, n)))
+                if some:
+                    self.sat_out.append(self._outs(out, n))
+                    self.sat_full.append(tuple(pts.shape))
+            return out
 
         def epc(*args, **kw):
             enabled = args[8]
             self.enabled += enabled.sum()
             if self.calls in self.capture_calls:
                 def grab(*a):
+                    out = mtv_query.mtv_query(*a)
+                    n = a[0].shape[0]
+                    rows = None
+                    if some:
+                        # and up to as many envs again with a live slot,
+                        # so that live lanes are held too
+                        live = enabled.any(-1).nonzero()[:, 0]
+                        rows = torch.cat([self.rows, live[:len(
+                            self.rows)]]).unique()
                     self.mtv.append((dict(zip(_MTV_ORDER, (
-                        x.clone() for x in a))), enabled.clone()))
-                    return mtv_query.mtv_query(*a)
+                        self._take(x, n, rows) for x in a))),
+                        self._take(enabled, n, rows)))
+                    if some:
+                        self.mtv_out.append(self._outs(out, n, rows))
+                        launches = mtv_query.LAUNCHES
+                        self.mtv_full.append(dict(
+                            shape=tuple(a[0].shape),
+                            live=int(enabled.sum()),
+                            lanes_in_round=_mtv_lanes_in_round(list(a))))
+                        mtv_query.LAUNCHES = launches
+                    return out
                 kw["mtv"] = grab
             return real_epc(*args, **kw)
 
@@ -1451,6 +1755,16 @@ def manip_main_path(card):
     return m, counts, probe
 
 
+def _hull_sat_bound(N, V, F, k, mask, lateral, slack):
+    """hull_ref_face_depth's bound over N instances: points and planes,
+    the mask and the slack where passed (bools), and the outputs moved
+    once; the support tensor and the depths computed once (twice with
+    the lateral filter)."""
+    nbytes = (4 * N * (3 * V + 4 * F) + N * (12 * k + 16)
+              + (4 * N * V if mask else 0) + (4 * N if slack else 0))
+    return _bound(nbytes, N * (6 * V * F * (2 if lateral else 1) + 6 * V))
+
+
 def manip_kernels(probe):
     """The collision kernels at the inputs the manip rollout gave them:
     held against their twins, then timed at those shapes beside the twins
@@ -1480,13 +1794,8 @@ def manip_kernels(probe):
     timing = {}
     for shape, (pts, planes, k, mask, lateral, slack) in shapes.items():
         N, V, F = pts.shape[:-2].numel(), pts.shape[-2], planes.shape[-2]
-        # bytes: points and planes, the mask and the slack where passed,
-        # the outputs
-        nbytes = (4 * N * (3 * V + 4 * F) + N * (12 * k + 16)
-                  + (4 * N * V if mask is not None else 0)
-                  + (4 * N if isinstance(slack, torch.Tensor) else 0))
-        bound, by = _bound(nbytes,
-                           N * (6 * V * F * (2 if lateral else 1) + 6 * V))
+        bound, by = _hull_sat_bound(N, V, F, k, mask is not None, lateral,
+                                    isinstance(slack, torch.Tensor))
         call = lambda: hull_sat.hull_ref_face_depth_cuda(
             pts, planes, k, mask, lateral, slack)
         timing["box_mesh" if V == 8 else "mesh_mesh"] = dict(
@@ -1548,18 +1857,25 @@ def manip_kernels(probe):
 
 def cross_drift(m, path, n=16, nsteps=50):
     """qpos of the model m against the same scene in f64 on the CPU after
-    nsteps stirred steps from the fixture's initial state, n envs: |dq|
-    per entry, the fraction inside MANIP_CROSS_TOL, the largest deviation
-    of an object's position, the fraction body by body (position and
-    quaternion entries of the six objects) and the largest |dqvel|."""
+    nsteps stirred steps from the fixture's initial state, n envs: the
+    measures of _drift."""
     import mujoco_sim_tpu_torch as mst
     m64 = mst.put_model(mst.load_model(path), torch.float64, "cpu")
     outs = []
     for mm_ in (m, m64):
         d = mst.rollout(mm_, mst.make_data(mm_, n), nsteps,
                         ctrl_fn=_stir(n, mm_.nu, mm_.device, mm_.dtype))
-        outs.append((d.qpos.double().cpu(), d.qvel.double().cpu()))
-    dq = (outs[0][0] - outs[1][0]).abs()
+        outs.append(d)
+    return _drift(outs[0], outs[1], nsteps)
+
+
+def _drift(d, ref, nsteps):
+    """The manip scene's qpos in d against ref (Data or any object with
+    its qpos and qvel, same envs): |dq| per entry, the fraction inside
+    MANIP_CROSS_TOL, the largest deviation of an object's position, the
+    fraction body by body (position and quaternion entries of the six
+    objects) and the largest |dqvel|."""
+    dq = (d.qpos.double().cpu() - ref.qpos.double().cpu()).abs()
     ok = dq <= MANIP_CROSS_TOL
     within = float(ok.double().mean())
     dpos = float(torch.stack([dq[:, 6 + 7 * i:9 + 7 * i]
@@ -1568,12 +1884,13 @@ def cross_drift(m, path, n=16, nsteps=50):
         position=float(ok[:, 6 + 7 * i:9 + 7 * i].double().mean()),
         quaternion=float(ok[:, 9 + 7 * i:13 + 7 * i].double().mean()))
         for i, name in enumerate(("t1", "t2", "r1", "r2", "c1", "c2"))}
-    return dict(nenv=n, steps=nsteps, max_dev_qpos=float(dq.max()),
+    return dict(nenv=dq.shape[0], steps=nsteps, max_dev_qpos=float(dq.max()),
                 median_dev_qpos=float(dq.median()),
                 fraction_within_band=within,
                 fraction_within_band_by_body=per_body,
                 max_dev_object_position=dpos,
-                max_dev_qvel=float((outs[0][1] - outs[1][1]).abs().max()))
+                max_dev_qvel=float((d.qvel.double().cpu()
+                                    - ref.qvel.double().cpu()).abs().max()))
 
 
 def manip_cross_check(m):
@@ -1590,15 +1907,16 @@ def manip_cross_check(m):
 
 # --------------------------------------------------------- bighull main path
 
-def _mtv_work(b, going):
+def _mtv_work(b, going, N=None):
     """(bytes, flops) the exact query must move and do on these inputs: a
     lane with no valid axis needs both hulls' face masks and one hull's
     edge masks to show it, A's first face normal and its result; a live
     lane reads every table once, scans 2F face axes against 2V vertices,
     and K^2 cross axes and 2E edge scores in every round it runs
-    (``going``: live lanes a round, from the kernel itself)."""
+    (``going``: live lanes a round, from the kernel itself).  ``N``: the
+    lanes of the launch where b holds some of them."""
     from mujoco_sim_tpu_torch.ops import mtv_query
-    N = b["wA"].shape[:-2].numel()
+    N = N or b["wA"].shape[:-2].numel()
     V, E, F = b["wA"].shape[-2], b["heA"].shape[-3], b["nfA"].shape[-2]
     K = mtv_query.K_EDGE
     live = int(going[0])
@@ -2040,24 +2358,28 @@ def terrain_deep_pass(m, d_end, nsteps=5):
     return counts, probe
 
 
-def hold_captures(chol_calls, sat_calls, what):
+def hold_captures(chol_calls, sat_calls, what, chol_out=None, sat_out=None):
     """The chol_solve and face-SAT inputs a _Probe captured (its ``chol``
     and ``sat`` lists), each held to its twin at the path's own shapes
     (compare_chol_step, compare_hull_sat; one env's solves pooled, see
-    below).  Returns the solves' worst measures, the SAT's max abs err
-    and accepted near-ties, and the shapes."""
+    below).  ``chol_out`` / ``sat_out``: the rows of the launches on the
+    whole batch that a _Probe with ``rows`` kept, held in place of a new
+    launch on the captured rows.  Returns the solves' worst measures, the
+    SAT's max abs err and accepted near-ties, and the shapes."""
     from mujoco_sim_tpu_torch.ops import chol
     if not chol_calls:
         raise AssertionError(f"{what}: no chol_solve input captured")
     solves, singles = {}, {}
 
-    def hold(A, b, label):
-        r = compare_chol_step(A, b, f"{what} {label}")
+    def hold(A, b, label, x=None):
+        r = compare_chol_step(A, b, f"{what} {label}", x)
         for k, v in r.items():
             solves[k] = max(solves.get(k, v), v)
 
-    for A, b in chol_calls:
-        if A.shape[0] == 1:
+    for i, (A, b) in enumerate(chol_calls):
+        if chol_out is not None:
+            hold(A, b, f"capture {tuple(A.shape)}", chol_out[i])
+        elif A.shape[0] == 1:
             singles.setdefault(A.shape[-1], []).append((A, b))
         else:
             hold(A, b, f"capture {tuple(A.shape)}")
@@ -2075,9 +2397,10 @@ def hold_captures(chol_calls, sat_calls, what):
                                  f"n = {n} differs from its pooled row")
         hold(A, b, f"{len(pairs)} one-env captures of n = {n}")
     sat_err, ties = 0.0, 0
-    for pts, planes, k, mask, lateral, slack in sat_calls:
+    for i, (pts, planes, k, mask, lateral, slack) in enumerate(sat_calls):
         e, t = compare_hull_sat(pts, planes, k, mask, lateral, slack,
-                                f"{what} capture {tuple(pts.shape)}")
+                                f"{what} capture {tuple(pts.shape)}",
+                                sat_out[i] if sat_out else None)
         sat_err, ties = max(sat_err, e), ties + t
     return dict(
         captured_chol_calls=len(chol_calls),
@@ -2213,62 +2536,23 @@ def control_main_path(card):
     # the eager reference (step_with_control_eager), then the main path:
     # step_with_control, one graph a step with the controller inside
     from mujoco_sim_tpu_torch import engine
-    from mujoco_sim_tpu_torch.ops import loops
     from mujoco_sim_tpu_torch.utils import graph
-    d0, st0 = d, st
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    de, se = d0, st0
-    for _ in range(nsteps):
-        de, se = engine.step_with_control_eager(m, de, ctrl, se)
-    torch.cuda.synchronize()
-    eager_s = (time.perf_counter() - t0) / nsteps
-    graph.clear_all()
-    _reset_counts()
-    loops.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(nsteps):
-        d, st = mst.step_with_control(m, d, ctrl, st)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = dict(_counts(), graph_loop=loops.LAUNCHES)
-    diffs = {k: float((getattr(d, k) - getattr(de, k)).abs().max())
-             for k in ("qpos", "qvel", "qacc_warmstart")}
-    diffs["err_int"] = float((st.err_int - se.err_int).abs().max())
-    if any(v != 0.0 for v in diffs.values()):
-        raise AssertionError(f"control: graph vs eager {diffs}")
-    g = graph.cached("control", ctrl, None)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dd, ss = d, st
-    for _ in range(20):
-        dd, ss = mst.step_with_control(m, dd, ctrl, ss)
-    torch.cuda.synchronize()
-    graph_s = (time.perf_counter() - t0) / 20
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        mst.step_with_control(m, d, ctrl, st)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    g_dev, g_ops = _profiled_device_ms(
-        lambda: [mst.step_with_control(m, d, ctrl, st) for _ in range(5)], 5)
-    e_dev, e_ops = _profiled_device_ms(
-        lambda: engine.step_with_control_eager(m, d, ctrl, st), 1)
-    phase("control_graph", steps=nsteps, nenv=n, held="bit for bit",
-          max_abs_diff=diffs, launches=counts,
-          eager=dict(env_steps_per_s=n / eager_s,
-                     host_ms_per_step=eager_s * 1e3, device_ms_per_step=e_dev,
-                     device_busy_share=e_dev / (eager_s * 1e3),
-                     cuda_ops_per_step=e_ops),
-          graph=dict(env_steps_per_s=n / graph_s,
-                     host_ms_per_step=graph_s * 1e3,
-                     device_ms_per_step=g_dev,
-                     device_busy_share=g_dev / (graph_s * 1e3),
-                     cuda_ops_per_step=g_ops, host_syncs_per_step=0,
-                     replays_per_step=1, sync_free_replay=True,
-                     pool_mb=g.last.pool_mb, capture_s=g.last.capture_s),
-          card=card)
+
+    def chain(step):
+        def run(c, k):
+            for _ in range(k):
+                c = step(m, c[0], ctrl, c[1])
+            return c
+        return run
+
+    eager = chain(engine.step_with_control_eager)
+    ce = eager((d, st), nsteps)
+    res = path_vs_eager("control", chain(mst.step_with_control), eager,
+                        lambda: graph.cached("control", ctrl, None),
+                        (d, st), nsteps, ce, card)
+    del ce
+    counts = res["capture"]
+    d, st = res["final"]
     bad = _float_leaves_finite(d)
     if bad:
         raise AssertionError(f"control: non-finite leaves: {bad}")
@@ -2294,8 +2578,395 @@ def control_main_path(card):
               float(v) for v in err.median(0).values],
           ncon_end_range=[int(d.ncon.min()), int(d.ncon.max())],
           effort_vs_inverse_max_rel=rel,
-          effort_band=CONTROL_EFFORT_RTOL, seconds=secs,
-          env_steps_per_s=n * nsteps / secs, card=card)
+          effort_band=CONTROL_EFFORT_RTOL,
+          env_steps_per_s=res["line"]["graph"]["env_steps_per_s"],
+          card=card)
+
+
+# ------------------------------------------- mobile base (BASELINE config 3)
+
+# bench.py's bench_mobile: 1024 envs, 500 steps, no jitter; the base's
+# command and the arm's PD gains; a1-a3 settle within MOBILE_ARM_TOL rad
+# of their setpoint 0
+MOBILE_NENV, MOBILE_STEPS = 1024, 500
+MOBILE_CMD = (0.4, 0.0, 0.0, 0.0, 0.0, 0.3)
+MOBILE_ARM_TOL = 5e-2
+# card against CPU: MOBILE_CROSS_NENV envs spread over the batch after
+# MOBILE_CROSS_STEPS steps, f32 card vs f64 CPU, within box's CROSS_TOL
+MOBILE_CROSS_NENV, MOBILE_CROSS_STEPS = 16, 100
+ODOM_JOINTS = ("lin_odom_x_joint", "lin_odom_y_joint", "ang_odom_z_joint")
+
+
+def mobile_model(dtype=torch.float32, device="cuda"):
+    """bench.py's _mobile_model on the in-repo world (world_empty.xml in
+    place of the reference's empty.xml): benchbot.xml with the odom joints
+    lin x, lin y and ang z, set_const on the compiled spec, the integrator
+    set to Euler as bench_mobile sets it."""
+    from mujoco_sim_tpu_torch import engine
+    from mujoco_sim_tpu_torch.models import scene
+    from mujoco_sim_tpu_torch.models.compile import compile_spec
+    from mujoco_sim_tpu_torch.models.model import Integrator
+    spec = scene.compose(WORLD, robots={"benchbot": scene.RobotConfig(
+        path=BENCHBOT, add_odom_joints=dict.fromkeys(ODOM_JOINTS, True))})
+    m = engine.set_const(compile_spec(spec))
+    m = m.replace(opt=m.opt.replace(integrator=int(Integrator.EULER)))
+    return engine.put_model(m, dtype, device)
+
+
+def mobile_step(m, nenv):
+    """bench_mobile's one_env_step on a batch of nenv, as a step function
+    of the (Data, PDState) carry: step1, the PD arm on a1-a3 (kp 80, kd
+    8, setpoint 0), apply_control, set_odom_vels with MOBILE_CMD, step2.
+    Returns it and the odom config."""
+    from mujoco_sim_tpu_torch import engine
+    from mujoco_sim_tpu_torch.control import controllers as C
+    ocfg = C.odom_config(m, "benchbot")
+    pdc = C.pd_config_for_joints(m, ["a1", "a2", "a3"], kp=80.0, kd=8.0)
+    qdes = torch.zeros((nenv, m.nv), dtype=m.dtype, device=m.device)
+    cmd = torch.tensor(MOBILE_CMD, dtype=m.dtype, device=m.device)
+
+    def step(carry):
+        d, st = carry
+        d = engine.step1(m, d)
+        st = C.pd_accel(pdc, st, d, qdes, m.opt.timestep)
+        d, st = C.apply_control(m, d, st, pdc.ctrl_mask)
+        d = C.set_odom_vels(m, d, ocfg, cmd)
+        return engine.step2(m, d), st
+
+    return step, ocfg
+
+
+def _spread(nenv, n):
+    """n env indices spread over a batch of nenv, the first and the last
+    included."""
+    return np.unique(np.linspace(0, nenv - 1, n).round().astype(np.int64))
+
+
+def mobile_main_path(card):
+    """BASELINE config 3, the batched mobile base (bench.py's
+    bench_mobile): 1024 envs of benchbot.xml with odom joints on the
+    in-repo world, Euler, 500 steps of step1 -> the PD arm ->
+    apply_control -> set_odom_vels -> step2 through parallel/mesh.
+    scan_reduced (one StepGraph of the controlled step over the (Data,
+    PDState) carry), held to the same step as a Python loop bit for bit;
+    the base follows the command, the arm settles, and 16 envs agree with
+    the CPU in f64."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.control import controllers as C
+    from mujoco_sim_tpu_torch.parallel import mesh as pmesh
+    from mujoco_sim_tpu_torch.utils import graph
+    m = mobile_model()
+    n, nsteps = MOBILE_NENV, MOBILE_STEPS
+    step, ocfg = mobile_step(m, n)
+    c0 = (mst.make_data(m, n), C.make_pd_state(m, n))
+
+    def eager(c, k):
+        for _ in range(k):
+            c = step(c)
+        return c
+
+    # the eager reference: the same step as a Python loop
+    _reset_counts()
+    ce = eager(c0, nsteps)
+    torch.cuda.synchronize()
+    eager_counts = _counts()
+    # the main path: scan_reduced, captured on its first call
+    res = path_vs_eager(
+        "mobile", lambda c, k: pmesh.scan_reduced(step, c, k), eager,
+        lambda: graph.cached("scan", step, None), c0, nsteps, ce, card,
+        launches_eager=eager_counts)
+    del ce
+    cg = res["final"]
+    d = cg[0]
+    bad = _float_leaves_finite(d) + [
+        f"pd.{k}" for k in ("ddq", "dq", "err_int")
+        if not bool(torch.isfinite(getattr(cg[1], k)).all())]
+    if bad:
+        raise AssertionError(f"mobile: non-finite leaves: {bad}")
+    # the base follows the command in every env: the odom twist against
+    # the command rotated by the yaw the step set it at (as odom_server)
+    x_, y_, yaw_ = (int(ocfg.qpos_ids[i]) for i in (0, 1, 5))
+    vx_, vy_, w_ = (int(ocfg.dof_ids[i]) for i in (0, 1, 5))
+    q, v = d.qpos.double(), d.qvel.double()
+    dt = float(m.opt.timestep)
+    yaw0 = q[:, yaw_] - dt * v[:, w_]
+    dev = torch.stack([
+        (v[:, vx_] - MOBILE_CMD[0] * torch.cos(yaw0)).abs(),
+        (v[:, vy_] - MOBILE_CMD[0] * torch.sin(yaw0)).abs(),
+        (v[:, w_] - MOBILE_CMD[5]).abs()], 1).amax(1)
+    twist_dev = float(dev.max())
+    if not twist_dev <= ODOM_TOL:
+        raise AssertionError(f"mobile: odom twist off the command by "
+                             f"{twist_dev} in {int((dev > ODOM_TOL).sum())} "
+                             "envs")
+    # x and yaw rise: from the start through step MOBILE_CROSS_STEPS to the
+    # end, in every env
+    c_mid = pmesh.scan_reduced(step, c0, MOBILE_CROSS_STEPS)
+    q_mid = c_mid[0].qpos.double()
+    rise = [c0[0].qpos.double(), q_mid, q]
+    for a, b in zip(rise, rise[1:]):
+        if not bool(((b[:, x_] > a[:, x_]) & (b[:, yaw_] > a[:, yaw_]))
+                    .all()):
+            raise AssertionError("mobile: x and yaw did not rise in every "
+                                 "env")
+    arm = [int(m.layout.jnt_qposadr[m.names.joint_id(j)])
+           for j in ("a1", "a2", "a3")]
+    arm_dev = float(q[:, arm].abs().max())
+    if not arm_dev <= MOBILE_ARM_TOL:
+        raise AssertionError(f"mobile: the arm is {arm_dev} rad off its "
+                             "setpoint")
+    # card f32 against CPU f64: envs spread over the batch, after
+    # MOBILE_CROSS_STEPS steps from the same start
+    rows = _spread(n, MOBILE_CROSS_NENV)
+    m64 = mobile_model(torch.float64, "cpu")
+    step64, _ = mobile_step(m64, len(rows))
+    c64 = pmesh.scan_reduced(step64, (mst.make_data(m64, len(rows)),
+                                      C.make_pd_state(m64, len(rows))),
+                             MOBILE_CROSS_STEPS)
+    cross = {k: float((getattr(c_mid[0], k)[rows].double().cpu()
+                       - getattr(c64[0], k)).abs().max())
+             for k in ("qpos", "qvel")}
+    if not cross["qpos"] <= CROSS_TOL:
+        raise AssertionError(f"mobile: card f32 vs CPU f64 after "
+                             f"{MOBILE_CROSS_STEPS} steps: {cross}")
+    phase("mobile_main_path",
+          scene="world_empty.xml + benchbot.xml, odom joints lin x, lin y, "
+                "ang z; Euler", nenv=n, steps=nsteps,
+          controller="PD a1-a3 kp 80 kd 8 to 0, set_odom_vels "
+                     f"{list(MOBILE_CMD)}",
+          path="parallel/mesh.scan_reduced (one StepGraph of the "
+               "controlled step)",
+          finite=True, odom_twist_max_dev=twist_dev, odom_tol=ODOM_TOL,
+          x_range=[float(q[:, x_].min()), float(q[:, x_].max())],
+          yaw_range=[float(q[:, yaw_].min()), float(q[:, yaw_].max())],
+          arm_max_abs=arm_dev, arm_tol=MOBILE_ARM_TOL,
+          ncon_range=[int(d.ncon.min()), int(d.ncon.max())],
+          cross_check=dict(envs=rows.tolist(), steps=MOBILE_CROSS_STEPS,
+                           max_dev=cross, band=CROSS_TOL),
+          env_steps_per_s=res["line"]["graph"]["env_steps_per_s"],
+          card=card)
+
+
+# --------------------------------- manip at scale (BASELINE config 5)
+
+# bench.py's manip_8k cell (8192 envs, 100 steps) and BASELINE config 5's
+# 65 536 envs (20 steps), each on one card in one graph
+MANIP_SCALE = ((8192, 100), (65536, 20))
+# the envs at each end of a batch whose kernel inputs (and the rows of the
+# launches on the whole batch) are held to the twins
+SCALE_ENDS = 64
+# the first 1024 envs of a batch against the 1024-env batch from the same
+# start: within SHARD_TOL after one step (cuBLAS's batched J^T f rounds by
+# batch, ROADMAP C), in manip's band (MANIP_CROSS_FRACTION of qpos within
+# MANIP_CROSS_TOL) after SCALE_BAND_STEPS
+SCALE_BAND_STEPS = 50
+# envs spread over each batch, the first and the last included, against
+# the CPU in f64 (cross_drift's band)
+SCALE_CROSS_NENV = 16
+
+
+def _scale_bounds(m, nenv, probe, what):
+    """Each hand-written kernel of a replayed step at this batch: its
+    launches a step (counted on the card) and device ms a step (the eager
+    steps' trace from the same state: the same launches on the same
+    inputs; the WHILE predicate, which eager steps do not launch, timed in
+    a graph of launches on an (nenv,) mask), beside the bound of its
+    launches at the whole batch's shapes: chol_solve at (nenv, nv), the
+    face SAT's calls at the shapes the probe kept, the exact query at the
+    live lanes of each round over the whole batch (the probe's first
+    capture), the WHILE predicate on (nenv,) masks."""
+    from mujoco_sim_tpu_torch.ops import loops, mtv_query
+    per, ms = REPLAY_COUNTS[what], REPLAY_MS[what]
+    out = {}
+
+    def row(name, per_launch_ms, bound, by):
+        out[name] = dict(launches_per_step=per[name],
+                         device_ms_per_launch=per_launch_ms,
+                         device_ms_per_step=per_launch_ms * per[name],
+                         bound_ms_per_step=bound, bound_by=by)
+
+    def eager_ms(name):
+        return ms[name] / per[name] if per[name] else 0.0
+
+    b, by = _chol_bound(nenv, m.nv)
+    row("chol_solve", eager_ms("chol_solve"), per["chol_solve"] * b, by)
+    sat = {}
+    for (pts, planes, k, mask, lateral, slack), full in zip(probe.sat,
+                                                              probe.sat_full):
+        N = int(np.prod(full[:-2]))
+        sat[full] = _hull_sat_bound(N, full[-2], planes.shape[-2], k,
+                                    mask is not None, lateral,
+                                    isinstance(slack, torch.Tensor))
+    row("hull_ref_face_depth", eager_ms("hull_ref_face_depth"),
+        sum(v[0] for v in sat.values()), max(sat.values())[1])
+    (bq, _), info = probe.mtv[0], probe.mtv_full[0]
+    lanes = int(np.prod(info["shape"][:-2]))
+    b, by = _bound(*_mtv_work(bq, info["lanes_in_round"], lanes))
+    row("mtv_query", eager_ms("mtv_query"), b, by)
+    out["mtv_query"].update(lanes=lanes, live=info["live"],
+                            lanes_in_round=info["lanes_in_round"],
+                            K=mtv_query.K_EDGE)
+    mask = torch.rand(nenv, device=m.device) < 0.01
+    b, by = _bound(nenv + 4, nenv)
+    row("graph_loop", _graph_ms(lambda: loops.any_cuda(mask)),
+        per["graph_loop"] * b, by)
+    out["face_sat_shapes"] = [list(k) for k in sat]
+    return out
+
+
+def manip_scale_size(m, nenv, nsteps, card):
+    """manip_main_path's stirred step at nenv envs through mst.rollout:
+    the eager reference (its launches, and the kernels' inputs and outputs
+    for the envs at both ends of the batch at two steps), the manip
+    checks, the graph held to eager bit for bit with its replay counts
+    (graph_vs_eager), the captured kernel launches held to their twins,
+    the first 1024 envs against the 1024-env batch, and each kernel's
+    device ms a replayed step beside its bound.  Returns the phase's
+    record and the card's state after SCALE_BAND_STEPS steps."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
+    from mujoco_sim_tpu_torch.utils import graph
+    t_size = time.perf_counter()
+    what = f"manip_{nenv}"
+    graph.clear_all()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    d0 = mst.make_data(m, nenv)
+    stir = _stir(nenv, m.nu, m.device, m.dtype)
+    ends = torch.cat([torch.arange(SCALE_ENDS),
+                      torch.arange(nenv - SCALE_ENDS, nenv)]).to(m.device)
+    _reset_counts()
+    with _Probe(capture_calls=(nsteps // 2, nsteps), rows=ends) as probe:
+        de = rollout_eager(m, d0, nsteps, ctrl_fn=stir)
+        torch.cuda.synchronize()
+    eager_peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    counts = _counts()
+    ncon_max, pos = _manip_checks(m, de, probe, counts, nsteps, what)
+    # the eager state's carried leaves on d0's others (a step reads no
+    # other): the eager steps after it, without a second Data of the batch
+    from mujoco_sim_tpu_torch.parallel.rollout import RECURRENT
+    eager_final = d0.replace(**{k: getattr(de, k) for k in RECURRENT})
+    del de
+    then = max(0, SCALE_BAND_STEPS - nsteps)
+    res = graph_vs_eager(
+        what, m, d0, nsteps, eager_final, card, ctrl_fn=stir,
+        eager_steps=2, count_steps=2, then=then,
+        need=("chol_solve", "graph_loop", "hull_ref_face_depth",
+              "mtv_query"))
+    del eager_final
+    for k in ("chol_solve", "hull_ref_face_depth", "mtv_query",
+              "graph_loop"):
+        if not REPLAY_COUNTS[what][k]:
+            raise AssertionError(f"{what}: {k} did not run in a replay")
+    d50 = res["final"] if then else mst.rollout(m, d0, SCALE_BAND_STEPS,
+                                                 ctrl_fn=stir)
+    # the kernels' launches on the whole batch, at the envs of both ends
+    held = hold_captures(probe.chol, probe.sat, what, probe.chol_out,
+                         probe.sat_out)
+    mtv_err, mtv_ties, live = 0.0, {}, 0
+    for (b, enabled), got in zip(probe.mtv, probe.mtv_out):
+        for name, (e, t) in compare_mtv(b, f"{what} capture", lanes=enabled,
+                                        got=got).items():
+            mtv_err = max(mtv_err, e) if name == "mtv_query" else mtv_err
+            mtv_ties[name] = mtv_ties.get(name, 0) + t
+        live += int(enabled.sum())
+    if not probe.mtv:
+        raise AssertionError(f"{what}: no exact-query input captured")
+    # the first 1024 envs against the 1024-env batch from the same start
+    first = slice(0, MANIP_NENV)
+    d0s = mst.make_data(m, MANIP_NENV)
+    stir_s = _stir(nenv, m.nu, m.device, m.dtype, rows=first)
+    one = mst.rollout(m, d0, 1, ctrl_fn=stir).qpos[first]
+    one_s = mst.rollout(m, d0s, 1, ctrl_fn=stir_s).qpos
+    dev_one = float((one - one_s).abs().max())
+    if not dev_one <= SHARD_TOL:
+        raise AssertionError(f"{what}: the first {MANIP_NENV} envs after one "
+                             f"step, {dev_one} from the {MANIP_NENV}-env "
+                             "batch")
+    d_s = mst.rollout(m, d0s, SCALE_BAND_STEPS, ctrl_fn=stir_s)
+    sub = types.SimpleNamespace(qpos=d50.qpos[first], qvel=d50.qvel[first])
+    band = _drift(sub, d_s, SCALE_BAND_STEPS)
+    if band["fraction_within_band"] < MANIP_CROSS_FRACTION:
+        raise AssertionError(f"{what}: the first {MANIP_NENV} envs after "
+                             f"{SCALE_BAND_STEPS} steps: {band}")
+    line = res["line"]["graph"]
+    kernels = _scale_bounds(m, nenv, probe, what)
+    rows = _spread(nenv, SCALE_CROSS_NENV)
+    out = dict(
+        nenv=nenv, steps=nsteps, launches_eager=counts,
+        launches_eager_per_step={k: v / nsteps for k, v in counts.items()},
+        finite=True, objects_in_bin=True,
+        object_z_range=[float(pos[..., 2].min()), float(pos[..., 2].max())],
+        ncon_max_seen=ncon_max, ncon_budget=m.ncon_max,
+        env_steps_per_s=line["env_steps_per_s"],
+        host_ms_per_step=line["host_ms_per_step"],
+        device_ms_per_step=line["device_ms_per_step"],
+        timed_steps=line["timed_steps"], timed_from=line["timed_from"],
+        same_steps=res["line"]["same_steps"],
+        pool_mb=line["pool_mb"], pool_mb_per_env=line["pool_mb"] / nenv,
+        peak_mb_over_rollout=line["peak_mb_over_rollout"],
+        eager_peak_mb=eager_peak_mb,
+        max_reserved_mb=torch.cuda.max_memory_reserved() / 2**20,
+        capture_s=line["capture_s"],
+        replay_launches_per_step=REPLAY_COUNTS[what],
+        kernels_per_step=kernels,
+        kernels_vs_twins=dict(
+            envs=f"0-{SCALE_ENDS - 1} and {nenv - SCALE_ENDS}-{nenv - 1} "
+                 "(and envs with a live deep slot for the exact query), "
+                 "rows of the launches on the whole batch",
+            **held, mtv_query_max_abs_err=mtv_err, mtv_ties=mtv_ties,
+            mtv_live_lanes=live),
+        first_1024=dict(after_one_step=dev_one, tol=SHARD_TOL,
+                        after_band_steps=band,
+                        required_fraction=MANIP_CROSS_FRACTION),
+        peaks="3.35 TB/s, 67 TFLOP/s f32",
+        seconds=time.perf_counter() - t_size, card=card)
+    card_rows = types.SimpleNamespace(qpos=d50.qpos[rows], qvel=d50.qvel[rows])
+    return out, rows, card_rows
+
+
+def manip_scale_main_path(card):
+    """BASELINE config 5 at its scale: manip_bin6 at 8192 envs (bench.py's
+    manip_8k) and 65 536 envs, each in one graph on one card
+    (manip_scale_size); then the envs spread over each batch (the first
+    and the last included) against the CPU in f64 after SCALE_BAND_STEPS
+    stirred steps (cross_drift's measures and band), both sizes' envs in
+    one CPU batch."""
+    import mujoco_sim_tpu_torch as mst
+    from mujoco_sim_tpu_torch.utils import graph
+    m = mst.put_model(mst.load_model(MANIP))
+    picked, records = [], {}
+    for nenv, nsteps in MANIP_SCALE:
+        rec, rows, card_rows = manip_scale_size(m, nenv, nsteps, card)
+        phase(f"manip_scale_{nenv}", **rec)
+        picked.append((nenv, rows, card_rows))
+        records[nenv] = rec
+    graph.clear_all()
+    torch.cuda.empty_cache()
+    m64 = mst.put_model(mst.load_model(MANIP), torch.float64, "cpu")
+    phases_ = np.concatenate([_stir_phases(nenv, m.nu)[rows]
+                              for nenv, rows, _ in picked])
+    ref = mst.rollout(m64, mst.make_data(m64, len(phases_)),
+                      SCALE_BAND_STEPS,
+                      ctrl_fn=_stir_with(phases_, "cpu", torch.float64))
+    out, at = {}, 0
+    for nenv, rows, card_rows in picked:
+        part = types.SimpleNamespace(qpos=ref.qpos[at:at + len(rows)],
+                                     qvel=ref.qvel[at:at + len(rows)])
+        at += len(rows)
+        r = _drift(card_rows, part, SCALE_BAND_STEPS)
+        within = r["fraction_within_band"]
+        dpos = r["max_dev_object_position"]
+        if within < MANIP_CROSS_FRACTION or not dpos <= MANIP_CROSS_POS_TOL:
+            raise AssertionError(
+                f"manip_{nenv} card f32 vs CPU f64: {within:.3f} of qpos "
+                f"within {MANIP_CROSS_TOL}, objects off by up to {dpos} m")
+        out[str(nenv)] = dict(r, envs=rows.tolist())
+    phase("manip_scale_cross_check", scene="manip_bin6.xml",
+          band=MANIP_CROSS_TOL, required_fraction=MANIP_CROSS_FRACTION,
+          object_band=MANIP_CROSS_POS_TOL, **out)
+    return {nenv: rec["kernels_per_step"] for nenv, rec in records.items()}
 
 
 # ----------------------------------------------------------- runtime phase
@@ -2376,7 +3047,7 @@ def spawn_main_path(card):
         torch.cuda.synchronize()
     launches = _counts()["chol_solve"]
     # the main path: parallel.rollout through the step graph, held to it
-    graph_counts = graph_vs_eager("spawn", m, d0, 300, d, card)
+    graph_counts = graph_vs_eager("spawn", m, d0, 300, d, card)["capture"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d100 = mst.rollout(m, d0, 100)
@@ -2553,12 +3224,14 @@ def _alive(srv):
         raise AssertionError(f"server: the sim thread died:\n{srv.sim_error}")
 
 
-def _server_step_vs_eager(srv, sim, capture_calls):
+def _server_step_vs_eager(srv, sim, capture_calls, what):
     """Between two of the sim thread's steps (under its lock): one eager
     step at the simulation's state with the kernels' inputs kept at
     ``capture_calls``, and one call of the simulation's step graph at the
     same state, held to it bit for bit, under set_sync_debug_mode("error")
-    (it raises at any host sync).  Returns the probe and the record."""
+    (it raises at any host sync); then one more replay and eager step at
+    that state, their hand-written kernels counted (hold_replay_counts).
+    Returns the probe and the record."""
     from mujoco_sim_tpu_torch import engine
     with srv._lock:
         d = sim.d
@@ -2576,15 +3249,20 @@ def _server_step_vs_eager(srv, sim, capture_calls):
             graph_ms = (time.perf_counter() - t0) * 1e3
         finally:
             torch.cuda.set_sync_debug_mode(0)
+        cap = sim.step_graph.last
+        pool_mb, capture_s = cap.pool_mb, cap.capture_s
+        del cap
+        rep = hold_replay_counts(what, lambda: sim.step_graph(sim.m, d),
+                                 lambda: engine.step(sim.m, d), 1)
     diffs = {k: float((getattr(dg, k) - getattr(de, k)).abs().max())
              if getattr(dg, k).numel() else 0.0 for k in GRAPH_FIELDS}
     if any(v != 0.0 for v in diffs.values()):
         raise AssertionError(f"server: graph step vs eager step {diffs}")
-    cap = sim.step_graph.last
     return probe, dict(held="bit for bit", max_abs_diff=diffs,
+                       replay_kernels=_replay_record(rep, 1),
                        sync_free_replay=True, eager_step_ms=eager_ms,
-                       graph_step_ms=graph_ms, pool_mb=cap.pool_mb,
-                       capture_s=cap.capture_s,
+                       graph_step_ms=graph_ms, pool_mb=pool_mb,
+                       capture_s=capture_s,
                        captures=sim.step_graph.captures)
 
 
@@ -2646,7 +3324,8 @@ def server_main_path(card):
         # state (under the lock, between two of its steps), and the
         # solves (nv = 24) of that eager step kept: RK4 runs collision 4
         # times a step
-        probe_balls, graph_balls = _server_step_vs_eager(srv, sim, (1, 3))
+        probe_balls, graph_balls = _server_step_vs_eager(srv, sim, (1, 3),
+                                                          "server_balls")
         state = c.call("get_state", names=names)
         zs = [o["pose"]["position"][2] for o in state["objects"]]
         if len(zs) != 3 or max(abs(z - BALL_REST_Z) for z in zs) > \
@@ -2708,7 +3387,8 @@ def server_main_path(card):
         # the solves (nv = 36 after the swap) and the cubes' face SAT of
         # an eager step at the sim thread's state, 20 steps on
         sat0 = hull_sat.LAUNCHES
-        probe_cubes, graph_cubes = _server_step_vs_eager(srv, sim, (1, 3))
+        probe_cubes, graph_cubes = _server_step_vs_eager(srv, sim, (1, 3),
+                                                          "server_cubes")
         sat_launches = hull_sat.LAUNCHES - sat0
         sat_steps = 1
         if sat_launches == 0:
@@ -2848,7 +3528,7 @@ def parallel_main_path(card):
                              "device it is on")
     dS = pmesh.shard_batch(d0, mesh)
     per = NENV // PARALLEL_SHARDS
-    nsteps = 300
+    nsteps = 150
     run = pmesh.make_sharded_rollout(mR, mesh, nsteps)
 
     # a. the eager sharded rollout (each shard's rollout_eager), with two
@@ -2859,7 +3539,7 @@ def parallel_main_path(card):
     _reset_counts()
     torch.cuda.synchronize()
     with _Probe(capture_calls=[k * nsteps + s for k in range(
-            PARALLEL_SHARDS) for s in (20, 250)]) as probe:
+            PARALLEL_SHARDS) for s in (20, 120)]) as probe:
         t0 = time.perf_counter()
         eager = [rollout_eager(mR.on(dv), sh, nsteps)
                  for dv, sh in zip(mesh.local_devices, dS.shards)]
@@ -2896,15 +3576,25 @@ def parallel_main_path(card):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     pools = [g.last.pool_mb for g in run.graphs]
+    capture_s = [g.last.capture_s for g in run.graphs]
+    shards = list(zip(run.graphs, mesh.local_devices, out.shards))
+    rep = hold_replay_counts(
+        "parallel", lambda: [g.run(mR.on(dv), sh, n=3)
+                             for g, dv, sh in shards],
+        lambda: [rollout_eager(mR.on(dv), sh, 3) for _, dv, sh in shards],
+        3)
     phase("parallel_graph", steps=nsteps, shards=PARALLEL_SHARDS,
           held="bit for bit, shard by shard", max_abs_diff_qpos=shard_diff,
-          launches=graph_counts, sync_free_replay=True,
+          launches_capture=graph_counts,
+          replay_kernels=dict(_replay_record(rep, 3),
+                              step="one step of each of the four shards"),
+          sync_free_replay=True,
           eager=dict(env_steps_per_s=NENV * nsteps / eager_sharded_s,
                      host_ms_per_step=eager_sharded_s / nsteps * 1e3),
           graph=dict(env_steps_per_s=NENV * nsteps / sharded_s,
                      host_ms_per_step=sharded_s / nsteps * 1e3,
                      first_call_s=first_s, pool_mb_per_shard=pools,
-                     capture_s=[g.last.capture_s for g in run.graphs]),
+                     capture_s=capture_s),
           card=card)
     mst.rollout(m, d0, 1)          # its capture, outside the timing
     torch.cuda.synchronize()
@@ -3142,54 +3832,70 @@ def main(argv):
     only = set(argv)
     want = lambda name: not only or name in only
     card = environment()
+    _start_tracer()
     if want("build"):
         build()
+    t_phase = time.perf_counter()
+
+    def done(name):
+        nonlocal t_phase
+        phase(f"{name}_phase", seconds=time.perf_counter() - t_phase)
+        t_phase = time.perf_counter()
+
     if want("kernels"):
         chol_err, chol_t = chol_vs_plain()
         fact_err, fact_t = chol_factor_vs_plain()
         fsat_err, fsat_t, fsat_launches = face_sat_vs_plain()
         rand_err = kernels_vs_plain()
         gl_err, gl_t = graph_loop_vs_plain()
+        done("kernels")
     if want("box"):
         m, qpos, qvel, box_launches, d_rest = box_main_path(card)
         box_integrators(m, d_rest, card)
         box_cross_check(m, qpos, qvel)
         second_scene()
+        done("box")
     if want("pile"):
         pile_counts = pile_main_path(card)
+        done("pile")
     if want("manip"):
         mm_, counts, probe = manip_main_path(card)
         cap_err, t = manip_kernels(probe)
         manip_cross_check(mm_)
+        done("manip")
     if want("precise"):
         mp_, pcounts, fact_step_t = precise_main_path(card)
         precise_cross_check(mp_)
+        done("precise")
     if want("bighull"):
         mb_, bcounts, big_t = bighull_main_path(card)
         bighull_cross_check(mb_)
+        done("bighull")
     if want("terrain"):
-        t_phase = time.perf_counter()
         mt_, tcounts, dt_end, tprobe = terrain_main_path(card)
         tdeep_counts, tdeep = terrain_deep_pass(mt_, dt_end)
         terr, tsolves, tdeep_t = terrain_kernels(tprobe, tdeep)
         del tprobe, tdeep
         terrain_cross_check(mt_, dt_end)
-        phase("terrain_phase", seconds=time.perf_counter() - t_phase)
+        done("terrain")
     if want("control"):
-        t_phase = time.perf_counter()
         control_main_path(card)
-        phase("control_phase", seconds=time.perf_counter() - t_phase)
+        done("control")
+    if want("mobile"):
+        mobile_main_path(card)
+        done("mobile")
+    if want("manip_scale"):
+        scale = manip_scale_main_path(card)
+        done("manip_scale")
     if want("runtime"):
-        t_phase = time.perf_counter()
         spawn_launches, spawn_held = spawn_main_path(card)
         rt_launches, cube_sat, cube_steps, rt_held = server_main_path(card)
         loop_main_path(card)
-        phase("runtime_phase", seconds=time.perf_counter() - t_phase)
+        done("runtime")
     if want("parallel"):
-        t_phase = time.perf_counter()
         par_launches, par_held = parallel_main_path(card)
         cli_export_path(card)
-        phase("parallel_phase", seconds=time.perf_counter() - t_phase)
+        done("parallel")
     phase("total", seconds=time.perf_counter() - t_start)
     if only:
         return
@@ -3315,6 +4021,18 @@ def main(argv):
              plain_ms=gl_t["plain_ms"], bound_ms=gl_t["bound_ms"],
              bound_by=gl_t["bound_by"], library_ms=gl_t["library_ms"]),
     ]
+    # by path: the wrappers' counts over each graph main path (its warm-up
+    # call and its capture; ``launches`` is the manip path's, or the
+    # kernel's own path's), and the launches a replayed step makes,
+    # counted on the card (hold_replay_counts); at scale, each kernel's device
+    # ms a replayed step beside its bound
+    for k in kernels:
+        name = k["name"]
+        k["launches_capture"] = {p: c[name] for p, c in GRAPH_COUNTS.items()}
+        k["launches_per_replay_step"] = {p: c[name]
+                                         for p, c in REPLAY_COUNTS.items()}
+        if name in scale[MANIP_SCALE[0][0]]:
+            k["scale"] = {str(n): r[name] for n, r in scale.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

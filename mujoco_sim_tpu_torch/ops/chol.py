@@ -78,6 +78,7 @@ def chol_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"chol_solve kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    cuda_build.count_launch("chol_solve", dev)
     return x
 
 

@@ -62,6 +62,7 @@ def chol_factor_cuda(A: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"chol_factor kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    cuda_build.count_launch("chol_factor", dev)
     return L
 
 

@@ -111,6 +111,7 @@ def face_sat_depth_cuda(pts, planes, vmask, K=2):
     if rc != 0:
         raise RuntimeError(f"face_sat kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    cuda_build.count_launch("face_sat_depth", dev)
     return depth, idx, plane, sep
 
 

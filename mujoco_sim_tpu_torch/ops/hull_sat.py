@@ -162,6 +162,7 @@ def hull_ref_face_depth_cuda(pts_local, planes, k_out, pts_mask=None,
     if rc != 0:
         raise RuntimeError(f"hull_sat kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    cuda_build.count_launch("hull_ref_face_depth", dev)
     return depth, idx, nref, sep
 
 

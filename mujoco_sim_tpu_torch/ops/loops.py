@@ -26,7 +26,9 @@ A capture must route the allocations of the loop bodies, which run on
 the body streams, into the graph's memory pool: ``capture`` (used by
 StepGraph) does that, and ``while_loop`` refuses a capture it did not
 open.  ``LAUNCHES`` counts the predicate kernel's launches (two a node:
-one before it, one at the end of its body), and nothing else.
+one before it, one at the end of its body), and nothing else; the counts
+kept on the card (cuda_build.count_launch) add one a replay for the
+first and one an iteration for the second.
 """
 
 from __future__ import annotations
@@ -95,6 +97,7 @@ def any_cuda(mask: torch.Tensor) -> torch.Tensor:
                              mask.data_ptr(), mask.numel(), out.data_ptr()),
            "any")
     LAUNCHES += 1
+    cuda_build.count_launch("graph_loop", mask.device)
     return out
 
 
@@ -168,10 +171,14 @@ def _while_node(cond_fn, body_fn, carry, active):
                                 parent.cuda_stream, body.cuda_stream,
                                 ctypes.byref(handle)), "begin")
     LAUNCHES += 1
+    # counted after the node: once a replay (cuda_build.count_launch)
+    cuda_build.count_launch("graph_loop", dev)
     _STATE.depth = depth + 1
     try:
         with torch.cuda.stream(body):
             _iterate(cond_fn, body_fn, carry, active)
+            # in the body: once an iteration
+            cuda_build.count_launch("graph_loop", dev)
         _check(lib.graph_loop_end(active.data_ptr(), active.numel(),
                                   handle.value, body.cuda_stream), "end")
         LAUNCHES += 1

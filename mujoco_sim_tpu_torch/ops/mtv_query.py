@@ -213,6 +213,7 @@ def mtv_query_cuda(wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB,
     if rc != 0:
         raise RuntimeError(f"mtv_query kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    cuda_build.count_launch("mtv_query", dev)
     return depth, n
 
 

@@ -73,6 +73,7 @@ def support_minmax_cuda(axes: torch.Tensor, w: torch.Tensor):
         raise RuntimeError(f"support_minmax kernel launch failed: "
                            f"cudaError {rc}")
     LAUNCHES += 1
+    cuda_build.count_launch("support_minmax", dev)
     return mn, mx
 
 

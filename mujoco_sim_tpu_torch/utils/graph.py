@@ -9,7 +9,9 @@ rollout's step with its ``ctrl_fn``) once as a CUDA graph and replays it:
 
 * warm-up: one eager call on the graph's own input buffers first, so the
   kernels are built (ops/cuda_build.load) and the plan caches filled
-  before the capture;
+  before the capture; then the caching allocator's free blocks are given
+  back to the card (``empty_cache``), since the capture's private pool
+  cannot reuse them;
 * capture: on a side stream in thread-local mode (the server captures on
   its sim thread while asyncio runs), through ops/loops.capture, which
   puts the allocations of the loop bodies (conditional WHILE nodes, no
@@ -142,9 +144,14 @@ class _Capture:
         if dev.type != "cuda":
             return
         t0 = time.perf_counter()
+        self._warm_and_capture(dev)
+        self.capture_s = time.perf_counter() - t0
+
+    def _warm_and_capture(self, dev):
+        """The warm-up call, then the capture, on a CUDA device."""
         with torch.cuda.device(dev):
-            warm = g.fn(m, *self.xs)            # warm-up: builds, caches
-            if rows:
+            warm = self.g.fn(self.m, *self.xs)   # warm-up: builds, caches
+            if self.rows:
                 # the trajectory buffers outlive a replay, so they are made
                 # outside the capture: a block the capture hands out may be
                 # one it freed earlier in the step, which the next replay
@@ -152,6 +159,11 @@ class _Capture:
                 self._make_bufs(warm)
             del warm
             torch.cuda.synchronize(dev)
+            # the warm-up's freed blocks go back to the card: the capture's
+            # private pool cannot reuse them, so, kept in the cache, they
+            # would double the step's footprint (manip_bin6 at 65 536 envs:
+            # ~30 GB more, 76.8 of the card's 80 GB reserved)
+            torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
             self.graph = torch.cuda.CUDAGraph()
             with loops.capture(self.graph, dev):
@@ -159,7 +171,6 @@ class _Capture:
             self.out_flat = _flatten(self.out)
             torch.cuda.synchronize(dev)
             self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
-        self.capture_s = time.perf_counter() - t0
 
     def _body(self):
         """fn on the static inputs, its results copied back into them, and

@@ -733,6 +733,48 @@ def test_step_graph_matches_eager_on_card(scene, nenv, cuda_device):
 
 
 @pytest.mark.cuda
+def test_replay_launches_counted_on_card(cuda_device):
+    """ops/cuda_build.counting: the replays of a manip step captured
+    while counts are kept add the hand-written kernels' launches on the
+    card (a WHILE body's once an iteration): as many as the eager steps
+    from the same state make, by the wrappers' LAUNCHES and on the card;
+    the WHILE predicate runs in the replays only.  Outside the block
+    nothing counts, and a graph captured there adds nothing."""
+    from mujoco_sim_tpu_torch.ops import cuda_build
+    from mujoco_sim_tpu_torch.parallel.rollout import step_graph
+    from mujoco_sim_tpu_torch.utils import graph
+    m = mst.put_model(mst.load_model(str(FIXTURES / "manip_bin6.xml")))
+    ctrl_fn = _stirred(m, 32)
+    try:
+        graph.clear_all()
+        d = mst.rollout(m, mst.make_data(m, 32), 3, ctrl_fn=ctrl_fn)
+        c_off = cuda_build.device_counts(cuda_device)
+        mst.rollout(m, d, 2, ctrl_fn=ctrl_fn)
+        assert cuda_build.device_counts(cuda_device) == c_off
+        graph.clear_all()
+        with cuda_build.counting(cuda_device):
+            mst.rollout(m, d, 1, ctrl_fn=ctrl_fn)      # the capture
+            g = step_graph(ctrl_fn)
+            c0 = cuda_build.device_counts(cuda_device)
+            g.run(m, d, n=4)
+            c1 = cuda_build.device_counts(cuda_device)
+            mods = dict(chol_solve=chol, hull_ref_face_depth=hull_sat,
+                        mtv_query=mtv_query)
+            before = {k: mod.LAUNCHES for k, mod in mods.items()}
+            rollout_eager(m, d, 4, ctrl_fn=ctrl_fn)
+            c2 = cuda_build.device_counts(cuda_device)
+        for k, mod in mods.items():
+            assert (c1[k] - c0[k] == mod.LAUNCHES - before[k]
+                    == c2[k] - c1[k] > 0), k
+        assert c1["graph_loop"] > c0["graph_loop"]
+        assert c2["graph_loop"] == c1["graph_loop"]
+        rollout_eager(m, d, 2, ctrl_fn=ctrl_fn)
+        assert cuda_build.device_counts(cuda_device) == c2
+    finally:
+        graph.clear_all()
+
+
+@pytest.mark.cuda
 def test_nested_while_nodes_captured(cuda_device):
     """A while loop inside a while loop's body, as the line search runs
     inside a Newton iteration, captured as nested WHILE nodes: the replay

@@ -6,6 +6,7 @@ uses it.  f64; everything is held bit for bit: the graph runs the same
 operations on the same values as the eager step."""
 
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -324,3 +325,141 @@ def test_simulation_step_and_reset_through_graphs():
     ref = engine.forward(sim.m, sim.d)
     _same(sim.d, ref)
     assert torch.equal(sim.d.xpos, ref.xpos)
+
+
+# ------------------------------------------- replay counts by kernel name
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports torch and numpy only at its
+    top; nothing runs until main)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", FIXTURES.parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _globals_in_csrc():
+    """The names of the __global__ functions in mujoco_sim_tpu_torch/csrc/,
+    comments stripped."""
+    src = FIXTURES.parent.parent / "mujoco_sim_tpu_torch" / "csrc"
+    found = {}
+    for f in sorted(src.glob("*.cu*")):
+        text = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read_text(), flags=re.S)
+        for name in re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?"
+                r"(\w+)\s*\(", text):
+            found[name] = f.name
+    return found
+
+
+def test_replay_counts_name_every_kernel_in_csrc():
+    """chip_smoke.py counts the hand-written kernels of each replayed step
+    by the names of their __global__ functions (REPLAY_KERNELS): each
+    __global__ in csrc/ is named there under a wrapper's count, and each
+    name there is a __global__, so a kernel added later cannot drop out of
+    the replay counts."""
+    cs = _chip_smoke()
+    found = _globals_in_csrc()
+    assert len(found) >= 9, found
+    named = {g for gs in cs.REPLAY_KERNELS.values() for g in gs}
+    assert set(found) <= named, sorted(set(found) - named)
+    assert named <= set(found), sorted(named - set(found))
+    assert set(cs.REPLAY_KERNELS) == set(cs._counts()) | {"graph_loop"}
+
+
+def test_replay_counts_read_demangled_kernel_names():
+    """The profiler's names of the kernels as they launch (templates,
+    anonymous namespaces, argument lists) map to their wrapper's count;
+    PyTorch's own kernels, a name that merely contains one, map to
+    none."""
+    cs = _chip_smoke()
+    for key, names in cs.REPLAY_KERNELS.items():
+        for g in names:
+            for shown in (f"void (anonymous namespace)::{g}<48>(float const*, "
+                          "int)", f"{g}(satk::Query)",
+                          f"void {g}<satk::Layout<8, 4, 6, false>, true>()"):
+                assert cs._hand_written(shown) == key, shown
+    for other in ("void at::native::elementwise_kernel<128, 2>(int)",
+                  "void at::native::offset_set_any<4>(int)",
+                  "Memcpy DtoD (Device -> Device)",
+                  "void chol_solve_kernel_v2(float const*)"):
+        assert cs._hand_written(other) is None, other
+
+
+def test_launch_counts_on_the_card_only():
+    """ops/cuda_build's launch counts for a graph's replays live on a CUDA
+    device; a CPU device is refused, and a launch where no counts are kept
+    adds nothing (the twins on the CPU launch nothing at all)."""
+    from mujoco_sim_tpu_torch.ops import cuda_build
+    with pytest.raises(ValueError):
+        with cuda_build.counting("cpu"):
+            pass
+    cuda_build.count_launch("chol_solve", torch.device("cuda", 0))
+    assert not cuda_build._ON
+    assert set(cuda_build.COUNTED) == set(_chip_smoke().REPLAY_KERNELS)
+
+
+def test_counting_is_kept_inside_its_block_only(monkeypatch):
+    """cuda_build.counting(device): launches count inside the block, on
+    the device's one count tensor, and stop counting when the block ends,
+    by an exception too; a nested block leaves the outer one counting.  A
+    CPU tensor stands in for the card's counts (no card here)."""
+    from mujoco_sim_tpu_torch.ops import cuda_build
+    dev = torch.device("cuda", 0)
+    counts = torch.zeros(len(cuda_build.COUNTED), dtype=torch.int64)
+    monkeypatch.setitem(cuda_build._COUNTS, dev, counts)
+    i = cuda_build.COUNTED.index("mtv_query")
+    with cuda_build.counting(dev):
+        cuda_build.count_launch("mtv_query", dev)
+        with cuda_build.counting("cuda:0"):
+            cuda_build.count_launch("mtv_query", dev)
+        cuda_build.count_launch("mtv_query", dev)
+    cuda_build.count_launch("mtv_query", dev)
+    assert int(counts[i]) == 3 and int(counts.sum()) == 3
+    with pytest.raises(RuntimeError):
+        with cuda_build.counting(dev):
+            raise RuntimeError("a failed capture")
+    assert not cuda_build._ON
+    cuda_build.count_launch("mtv_query", dev)
+    assert int(counts[i]) == 3
+    assert cuda_build.device_counts(dev)["mtv_query"] == 3
+    assert cuda_build._COUNTS[dev] is counts
+
+
+def test_capture_gives_the_warmups_blocks_back_first(monkeypatch):
+    """StepGraph on a card: the warm-up call, then the caching allocator's
+    free blocks given back to the card (empty_cache: the capture's private
+    pool cannot reuse them, and manip_bin6 at 65 536 envs kept ~30 GB of
+    them), then the capture.  The CUDA calls are stubbed and their order
+    recorded: a capture needs a card."""
+    import contextlib
+    from mujoco_sim_tpu_torch.utils import graph as G
+    calls = []
+
+    @contextlib.contextmanager
+    def capture(graph, dev):
+        calls.append("capture")
+        yield
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda dev=None: calls.append("sync"))
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: calls.append("empty_cache"))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev=None: 0)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(G.loops, "capture", capture)
+
+    def fn(_, x):
+        calls.append("fn")
+        return x + 1.0
+
+    g = StepGraph(fn)
+    x = torch.zeros(3, dtype=torch.float64)
+    assert torch.equal(g(None, x), x + 1.0)       # the CPU path: no capture
+    calls.clear()
+    g.last._warm_and_capture(torch.device("cpu"))
+    assert calls == ["fn", "sync", "empty_cache", "capture", "fn", "sync"]
