@@ -6,6 +6,16 @@
 
 namespace asynccopy {
 
+// Bytes of dynamic shared memory a block may opt in to on the current
+// device: the room the staged layouts size themselves to.
+inline int smem_optin() {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return optin;
+}
+
 // One float from global memory to shared memory, in flight until wait_all().
 __device__ __forceinline__ void copy_f32(float* dst_shared,
                                          const float* src_global) {

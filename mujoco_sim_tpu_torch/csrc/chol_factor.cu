@@ -21,12 +21,16 @@
 // of L (zeros above the diagonal) into the staged matrix's place in shared
 // memory, and the warp copies that out with coalesced stores.
 //
-// Above the size classes (n > 64) chol_factor_big_kernel runs factor_block
-// (chol_factor.cuh, shared with chol_solve.cu): one block a system, the
-// matrix in dynamic shared memory, or past the card's shared memory
-// (n > 239 on the H100) in the output itself, then L written with zeros
-// above the diagonal.  Its bound there is the column chain of 2 n
-// barriers; a simple kernel, not a tuned one.
+// Above the size classes (n > 64) chol_factor_panel_kernel runs the panel
+// factor of chol_solve.cu (factor_panels in chol_factor.cuh: one block a
+// system, panels of 32 columns, warp 0 on the diagonal block with the
+// register classes' column step, the panel's rows and the trailing update
+// in register tiles on the block's threads, three barriers a panel), then
+// writes L with zeros above the diagonal, coalesced.  Its bound is bytes
+// (8 n^2 a system), its time the panel chain's latency, as for
+// chol_solve.  Past the card's shared memory (n > 236) it factors in
+// place in the output with the column loop (chol_factor_work_kernel); no
+// step launches it.
 //
 // Build (no PyTorch headers; loaded with ctypes by ops/chol_factor.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -79,47 +83,63 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock* kWarp)
   }
 }
 
-// One system a block (n > kMaxN): factored in dynamic shared memory when
-// `in_smem`, else in place in its slot of L (stride n); the column buffer
-// in shared memory either way.
+// One system a block (n > kMaxN), the matrix in dynamic shared memory with
+// row stride ld: the panel factor, then L with zeros above the diagonal,
+// coalesced.
 __global__ void __launch_bounds__(256)
-    chol_factor_big_kernel(const float* __restrict__ A, float* __restrict__ L,
-                           int n, int in_smem) {
+    chol_factor_panel_kernel(const float* __restrict__ A,
+                             float* __restrict__ L, int n, int ld) {
+  extern __shared__ __align__(16) float smem[];
+  const long long sys = blockIdx.x;
+  const Panels p(smem, n, ld);
+  stage_panels(p, A + sys * n * n);
+  asynccopy::wait_all();
+  __syncthreads();
+  factor_panels<false>(p);
+  float* Ls = L + sys * n * n;
+  const unsigned magic = div_magic(n);
+  for (unsigned t = threadIdx.x; t < static_cast<unsigned>(n * n);
+       t += blockDim.x) {
+    const unsigned r = __umulhi(t, magic), c = t - r * n;
+    Ls[t] = c <= r ? p.S[r * ld + c] : 0.0f;
+  }
+}
+
+// One system a block past the card's shared memory: factored in place in
+// its slot of L (stride n) by the column loop, the column buffer in shared
+// memory, then zeros written above the diagonal (each thread reads only
+// the entries it writes).
+__global__ void __launch_bounds__(256)
+    chol_factor_work_kernel(const float* __restrict__ A,
+                            float* __restrict__ L, int n) {
   extern __shared__ __align__(16) float smem[];
   const long long sys = blockIdx.x;
   float* Ls = L + sys * n * n;
-  const int ld = in_smem ? row_stride(n) : n;
-  float* col = smem;
-  float* S = in_smem ? smem + n : Ls;
-  load_lower(S, ld, A + sys * n * n, n);
+  load_lower(Ls, n, A + sys * n * n, n);
   __syncthreads();
-  factor_block<false>(S, ld, nullptr, col, n);
-  // the factor with zeros above the diagonal (in place: each thread reads
-  // only the entries it writes)
+  factor_block<false>(Ls, n, nullptr, smem, n);
   for (int t = threadIdx.x; t < n * n; t += blockDim.x) {
     const int r = t / n, c = t - r * n;
-    Ls[t] = c <= r ? S[r * ld + c] : 0.0f;
+    if (c > r) Ls[t] = 0.0f;
   }
 }
 
 int launch_big(const float* A, float* L, int N, int n, cudaStream_t stream) {
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const size_t col_bytes = static_cast<size_t>(n) * sizeof(float);
-  const size_t full =
-      col_bytes + static_cast<size_t>(n) * row_stride(n) * sizeof(float);
-  const bool in_smem = full <= static_cast<size_t>(optin);
-  const size_t bytes = in_smem ? full : col_bytes;
+  const int ld = panel_fit_ld(n);
+  if (ld == 0) {
+    chol_factor_work_kernel<<<N, block_threads(n), n * sizeof(float),
+                              stream>>>(A, L, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t bytes = panel_floats(n, ld) * sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        chol_factor_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        chol_factor_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  chol_factor_big_kernel<<<N, block_threads(n), bytes, stream>>>(
-      A, L, n, in_smem ? 1 : 0);
+  chol_factor_panel_kernel<<<N, panel_threads(n), bytes, stream>>>(A, L, n,
+                                                                    ld);
   return static_cast<int>(cudaGetLastError());
 }
 

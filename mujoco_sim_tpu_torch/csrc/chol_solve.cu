@@ -40,16 +40,42 @@
 // Hessian carries stiff rows (efc_D ~ 1e9) that lose the factor in reduced
 // precision, the reason the TPU kernel stays on the VPU.
 //
-// Above the size classes (n > 64, a model with more than 64 dofs) the
-// same function runs as chol_solve_big_kernel: one block a system, the
-// matrix in dynamic shared memory (or, past n = 239 on the H100, in a
-// device-memory workspace the wrapper allocates), factor_block's right-
-// looking column factor with the block's threads over the trailing rows
-// and the forward substitution fused, then a backward substitution of one
-// barrier a row that divides by L_jj as the references do.  What bounds it
-// there is latency: a chain of 2 n barriers a system, and each thread's
-// row update, two shared loads and a store per multiply-add, four entries
-// in flight at a time.  It is the simple kernel, not a tuned one.
+// Above the size classes (n > 64: every free body adds 6 dofs, so a pile
+// of 11 boxes or a hand goes over) the same function runs as
+// chol_solve_panel_kernel, one block a system, the matrix in dynamic
+// shared memory (n <= 236 on the H100).  What bounds it there is latency:
+// at the pile scene's (1024, 66) every system is resident at once and
+// the chains of dependent steps set the time, not the 18 MB it reads.  The
+// first version (the column loop below, one block of 128 threads a
+// system) paid two block barriers a column, a shared load, a load and a
+// store per multiply-add of its trailing update, and one barrier and a
+// division a row of the backward substitution: 0.117 ms at (1024, 66),
+// 21x its bound.  What this design does about it (chol_factor.cuh,
+// factor_panels and backward_panels):
+//  * panels of 32 columns: warp 0 factors the panel's diagonal block with
+//    the register classes' own column step (factor_rows<32>: shuffles and
+//    a warp-local column, no block barrier) with the forward substitution
+//    fused; the block's threads then solve the panel's rows below it, a
+//    row each in registers with 16-byte broadcast loads of L11^T, and
+//    update the trailing triangle in 4 x 4 register tiles (8 16-byte loads
+//    to 64 multiply-adds); three block barriers a panel, not two a column;
+//  * the backward substitution inverts every diagonal block at once, a
+//    warp a block and a lane a column (no exchange between lanes), then
+//    takes each panel's x as one dot product a row: the n dependent steps
+//    of a substitution become one 32-step inversion, two barriers a panel;
+//  * 64 threads a system up to n = 96 (128 to 160, 256 above) and 80
+//    registers, so nine systems fit an SM at n = 66 by shared memory and
+//    by registers: the step's 1024 systems are all resident at once;
+//  * the matrix is staged with cp.async (16 bytes a copy where n allows),
+//    all in flight before the one wait, into rows of an odd multiple of 4
+//    floats, so 16-byte accesses of 8 rows hit distinct banks;
+//  * the reciprocal pivots are kept, so the substitutions multiply; a
+//    floored pivot is divided by as stored (binv), as the references do.
+// Every entry of L sees the column factor's multiply-adds in the column
+// factor's order, plain f32 FMA (no tensor cores, no TF32).  Past the
+// card's shared memory (n > 236) the system takes chol_solve_work_kernel:
+// the column loop of the first version on a device-memory workspace the
+// wrapper allocates; no step launches it.
 //
 // Build (no PyTorch headers; loaded with ctypes by ops/chol.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -130,57 +156,62 @@ __device__ void backward_block(const float* S, int ld, float* y, float* x,
   }
 }
 
-// One system a block (n > kMaxN): the matrix in dynamic shared memory, or
-// with `work` (N n n floats) in device memory; the right-hand side and the
-// column buffer in shared memory either way.
+// One system a block (n > kMaxN), the matrix in dynamic shared memory with
+// row stride ld: the panel factor with the forward substitution, then the
+// backward substitution by panels.
 __global__ void __launch_bounds__(256)
-    chol_solve_big_kernel(const float* __restrict__ A,
-                          const float* __restrict__ b, float* __restrict__ x,
-                          float* __restrict__ work, int n, int ld) {
+    chol_solve_panel_kernel(const float* __restrict__ A,
+                            const float* __restrict__ b,
+                            float* __restrict__ x, int n, int ld) {
+  extern __shared__ __align__(16) float smem[];
+  const long long sys = blockIdx.x;
+  const Panels p(smem, n, ld);
+  stage_panels(p, A + sys * n * n);
+  for (int t = threadIdx.x; t < n; t += blockDim.x) p.y[t] = b[sys * n + t];
+  asynccopy::wait_all();
+  __syncthreads();
+  factor_panels<true>(p);
+  backward_panels(p);
+  for (int t = threadIdx.x; t < n; t += blockDim.x) x[sys * n + t] = p.y[t];
+}
+
+// One system a block past the card's shared memory: the matrix in `work`
+// (N n n floats of device memory), the right-hand side and the column
+// buffer in shared memory; the column loop (factor_block).
+__global__ void __launch_bounds__(256)
+    chol_solve_work_kernel(const float* __restrict__ A,
+                           const float* __restrict__ b, float* __restrict__ x,
+                           float* __restrict__ work, int n) {
   extern __shared__ __align__(16) float smem[];
   const long long sys = blockIdx.x;
   float* y = smem;
   float* col = smem + n;
-  float* S = work == nullptr ? smem + 2 * n : work + sys * n * ld;
-  load_lower(S, ld, A + sys * n * n, n);
+  float* S = work + sys * n * n;
+  load_lower(S, n, A + sys * n * n, n);
   for (int t = threadIdx.x; t < n; t += blockDim.x) y[t] = b[sys * n + t];
   __syncthreads();
-  factor_block<true>(S, ld, y, col, n);
-  backward_block(S, ld, y, x + sys * n, n);
-}
-
-// Bytes of dynamic shared memory the big kernel needs for n with the
-// matrix in it (or without: 2 n floats), and the card's opt-in limit.
-size_t big_smem_bytes(int n, bool matrix) {
-  return ((matrix ? static_cast<size_t>(n) * row_stride(n) : 0) + 2 * n) *
-         sizeof(float);
-}
-
-int smem_optin() {
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  return optin;
-}
-
-bool big_fits_smem(int n) {
-  return big_smem_bytes(n, true) <= static_cast<size_t>(smem_optin());
+  factor_block<true>(S, n, y, col, n);
+  backward_block(S, n, y, x + sys * n, n);
 }
 
 int launch_big(const float* A, const float* b, float* x, float* work, int N,
                int n, cudaStream_t stream) {
-  const bool in_smem = big_fits_smem(n);
-  if (!in_smem && work == nullptr) return 1;
-  const size_t bytes = big_smem_bytes(n, in_smem);
+  const int ld = panel_fit_ld(n);
+  if (ld == 0) {
+    if (work == nullptr) return 1;
+    chol_solve_work_kernel<<<N, block_threads(n), 2 * n * sizeof(float),
+                             stream>>>(A, b, x, work, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t bytes = panel_floats(n, ld) * sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        chol_solve_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        chol_solve_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  chol_solve_big_kernel<<<N, block_threads(n), bytes, stream>>>(
-      A, b, x, in_smem ? nullptr : work, n, in_smem ? row_stride(n) : n);
+  chol_solve_panel_kernel<<<N, panel_threads(n), bytes, stream>>>(A, b, x,
+                                                                   n, ld);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,9 +231,9 @@ int launch(const float* A, const float* b, float* x, int N, int n,
 
 // Floats of device-memory workspace a system needs: 0 where the kernel
 // holds it in registers or shared memory, n n past the card's shared memory
-// (n > 239 on the H100).
+// (n > 236 on the H100).
 extern "C" long long chol_solve_work_floats(int n) {
-  if (n <= kMaxN || big_fits_smem(n)) return 0;
+  if (n <= kMaxN || panel_fit_ld(n) != 0) return 0;
   return static_cast<long long>(n) * n;
 }
 

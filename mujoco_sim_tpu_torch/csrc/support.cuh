@@ -1,9 +1,8 @@
 // Shared device helpers of the convex-hull collision kernels (sm_90a):
 // the support scan of unit axes over a vertex cloud held in shared memory
-// (T axes a lane per 16-byte broadcast load, over the whole cloud or tile
-// by tile), the staging of 12-byte vertex rows into 16-byte slots, the
-// analytic cylinder support, and warp reductions on (value, index) pairs
-// whose ties go to the lowest index.
+// (T axes a lane per 16-byte broadcast load), the staging of 12-byte
+// vertex rows into 16-byte slots, the analytic cylinder support, and warp
+// reductions on (value, index) pairs whose ties go to the lowest index.
 //
 // All arithmetic is written as separate multiplies and adds in the order of
 // the plain PyTorch twins ((x*a + y*b) + z*c); the sources that include this
@@ -39,9 +38,8 @@ __device__ __forceinline__ void stage_rows_f4(float4* dst,
 
 // Fold n vertices stored as float4 (x, y, z, unused) into the running
 // (min, max) of T axes: one 16-byte broadcast load a vertex serves all T
-// axes, and each axis-vertex product keeps the twins' order.  Called once
-// over a whole cloud or once a tile: min and max do not depend on the
-// order in which the vertices come.  Unmasked: the hull tables pad by
+// axes, and each axis-vertex product keeps the twins' order (min and max
+// do not depend on the order in which the vertices come).  Unmasked: the hull tables pad by
 // repeating a real vertex, so a pad never moves either extreme.
 template <int T>
 __device__ __forceinline__ void support_scan_acc(
@@ -77,25 +75,6 @@ __device__ __forceinline__ void support_scan_block(
     float (&mx)[T]) {
   scan_init(mn, mx);
   support_scan_acc<T>(w, V, ax, ay, az, mn, mx);
-}
-
-// The same over V vertex rows in device memory that do not fit shared
-// memory: a warp stages them tile by tile (tv rows at a time) into `tile`
-// and folds each in.  Every lane of the warp calls it with its own axes.
-template <int T>
-__device__ __forceinline__ void support_scan_tiled(
-    float4* tile, int tv, const float* __restrict__ rows, int V, int lane,
-    const float (&ax)[T], const float (&ay)[T], const float (&az)[T],
-    float (&mn)[T], float (&mx)[T]) {
-  scan_init(mn, mx);
-  for (int v0 = 0; v0 < V; v0 += tv) {
-    const int n = min(tv, V - v0);
-    __syncwarp();  // every lane is done with the last tile
-    stage_rows_f4(tile, rows + 3ll * v0, n, lane, kWarp);
-    asynccopy::wait_all();
-    __syncwarp();
-    support_scan_acc<T>(tile, n, ax, ay, az, mn, mx);
-  }
 }
 
 // Exact support extents of a cylinder (centre cen, axis aw, radius r,

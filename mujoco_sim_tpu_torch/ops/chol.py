@@ -11,8 +11,9 @@ from a switch:
   ctypes) or raises.  The kernel keeps each matrix in the registers of the
   lanes that own its rows (size classes 8, 16, 32, 48, 64; several systems
   a warp below n = 16); above n = 64 it factors each system in one block,
-  in shared memory, or past the card's shared memory (n > 239 on the
-  H100) in a device-memory workspace this wrapper allocates.  Any n >= 1;
+  in panels of 32 columns in shared memory, or past the card's shared
+  memory (n > 236 on the H100) with a column loop in a device-memory
+  workspace this wrapper allocates.  Any n >= 1;
 * a CPU tensor takes the plain twin ``chol_solve_plain`` (ops/linalg.py
   cholesky + cho_solve, the JAX package's CPU path).
 

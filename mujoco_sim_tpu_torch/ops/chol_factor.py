@@ -10,7 +10,7 @@ solves a matrix right-hand side with it.
 switch: a CUDA tensor launches csrc/chol_factor.cu (built by
 ops/cuda_build.py at first use; its factor is the one chol_solve.cu runs,
 shared through csrc/chol_factor.cuh: register-resident up to n = 64, one
-block a system above, any n >= 1) or raises; a CPU
+block a system factored in panels of 32 columns above, any n >= 1) or raises; a CPU
 tensor takes the plain twin ``chol_factor_plain`` (ops/linalg.cholesky).
 ``LAUNCHES`` counts kernel launches and nothing else.
 """

@@ -18,11 +18,13 @@ WORLD merged-face normals, fmA/fmB (F,) face masks, RA/RB (3, 3), pA/pB
 hull takes its exact analytic support: axis = R[:, 2], centre = p).
 
 ``mtv_query`` picks its path from the tensor's device: a CUDA tensor
-launches csrc/mtv_query.cu (built by ops/cuda_build.py at first use; one
-warp per instance, four axes scanned per vertex load, the K nearest edges
-taken in the twin's (score, index) order; tables of any size: those that
-do not fit shared memory are read from device memory, the vertices tile
-by tile) or raises; a CPU tensor takes the plain twin.  ``LAUNCHES``
+launches csrc/mtv_query.cu (built by ops/cuda_build.py at first use; the
+K nearest edges taken in the twin's (score, index) order; tables that fit
+a warp's share of 47 KB of shared memory: one warp per instance, four axes
+scanned per vertex load; larger tables, of any size: one block of eight
+warps per instance, its tables staged where they fit half the card's
+shared memory and read from device memory where they do not) or raises; a
+CPU tensor takes the plain twin.  ``LAUNCHES``
 counts kernel launches and nothing else.
 """
 
@@ -170,8 +172,10 @@ def mtv_query_plain(wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB,
 def _load() -> ctypes.CDLL:
     lib = cuda_build.load("mtv_query")
     lib.mtv_query_f32.restype = ctypes.c_int
-    lib.mtv_query_f32.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+    lib.mtv_query_f32.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
                                   + [ctypes.c_void_p])
+    lib.mtv_query_block_layout.restype = ctypes.c_int
+    lib.mtv_query_block_layout.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -205,11 +209,17 @@ def mtv_query_cuda(wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB,
     K, rounds = int(K), int(rounds)
     if not 1 <= K <= 1024 or rounds < 0:
         raise ValueError(f"{fn}: K={K}, rounds={rounds}")
+    lib = _load()
     depth = torch.empty(lead, dtype=torch.float32, device=dev)
     n = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
+    # the block layout's two turn counters, zero at the launch
+    turns = (torch.zeros(2, dtype=torch.int64, device=dev)
+             if lib.mtv_query_block_layout(V, E, F, K) else None)
     rc = cuda_build.launch(
-        dev, _load().mtv_query_f32, *[t.data_ptr() for t in got],
-        depth.data_ptr(), n.data_ptr(), depth.numel(), V, E, F, K, rounds)
+        dev, lib.mtv_query_f32, *[t.data_ptr() for t in got],
+        depth.data_ptr(), n.data_ptr(),
+        None if turns is None else turns.data_ptr(), depth.numel(), V, E, F,
+        K, rounds)
     if rc != 0:
         raise RuntimeError(f"mtv_query kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

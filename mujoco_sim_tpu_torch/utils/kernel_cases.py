@@ -35,11 +35,14 @@ CHOL_BATCH = 37          # a multiple of nothing the kernels tile by
 CHOL_EDGE_SIZES = (1, 2, 8, 9, 16, 17, 32, 33, 48, 49, 63, 64)
 CHOL_CASES = tuple(f"n{n}" for n in CHOL_EDGE_SIZES) + ("stiff_n33", "floor")
 
-# above the register-resident classes: one block a system (n <= 239 in
-# shared memory on the H100, beyond in device memory)
-CHOL_BIG_SIZES = (65, 96, 128, 238, 300)
-CHOL_BIG_CASES = tuple(f"n{n}" for n in CHOL_BIG_SIZES) + ("stiff_n96",
-                                                         "floor_n72")
+# above the register-resident classes: one block a system, factored in
+# panels of 32 columns in shared memory up to n = 236 on the H100 (64
+# threads a system up to n = 96, 128 up to 160, 256 above), beyond in
+# device memory: both sides of every panel, thread-count and memory edge
+CHOL_BIG_SIZES = (65, 66, 95, 96, 97, 127, 128, 129, 159, 160, 161, 236,
+                  237, 300)
+CHOL_BIG_CASES = tuple(f"n{n}" for n in CHOL_BIG_SIZES) + (
+    "stiff_n96", "floor_n72", "batch_n66")
 
 MTV_BATCH = 37
 MTV_CASES = ("e_lt_k", "masked_A", "masked_B", "duplicates", "cyl_A", "cyl_B",
@@ -56,9 +59,12 @@ def chol_big_case(name: str, seed: int = 0):
     that is no multiple of anything; one block a system).  ``stiff_n96``: a
     1e9 diagonal entry in row 40.  ``floor_n72``: the leading 2 x 2 block
     of ``floor`` (chol_case) in a 72 x 72 system, so its second pivot is
-    floored."""
+    floored.  ``batch_n66``: the pile scene's n at N = 1031, more systems
+    than the card holds at once and a multiple of nothing."""
     rng = np.random.default_rng([seed, 100 + CHOL_BIG_CASES.index(name)])
     N = 7
+    if name == "batch_n66":
+        return _spd(rng, 1031, 66), rng.standard_normal((1031, 66))
     if name == "stiff_n96":
         A = _spd(rng, N, 96)
         A[:, 40, 40] += 1e9

@@ -32,13 +32,16 @@ prints one JSON object; per kernel and shape it holds
   move over 3.35 TB/s and its flops over 67 TFLOP/s f32 (H100 SXM peaks).
 
 Shapes: chol_solve at (1024, 42), (4096, 42) and (4096, 6), the manip and
-box scenes' systems, and at (1024, 66) and (256, 128), systems above the
-register-resident size classes; chol_factor at (1024, 42), (1024, 66) and
-(256, 128); mtv_query at N = 8192, V = 24, E = 56, F = 34, K = 16, 2 rounds,
-the manip step's query, at V = 256, E = 762, F = 508 (random hull pairs),
-and at the tables of tests/fixtures/manip_bin6_bighull.xml (V = 320,
-E = 954, F = 636: its two pebbles posed in deep interpenetration in every
-lane); hull_ref_face_depth at the manip step's two calls
+box scenes' systems, at (1024, 66) and (256, 128), systems above the
+register-resident size classes, and at (8192, 42) and (65 536, 42), the
+manip scene at scale; chol_factor at (1024, 42), (1024, 66), (256, 128),
+(8192, 42) and (65 536, 42); mtv_query at N = 8192, V = 24, E = 56,
+F = 34, K = 16, 2 rounds, the manip step's query, at V = 256, E = 762,
+F = 508 (random hull pairs), and at the tables of
+tests/fixtures/manip_bin6_bighull.xml (V = 320, E = 954, F = 636: its two
+pebbles posed in deep interpenetration in every lane, then in 7 lanes of
+the 8192, the rest empty slots: the bighull step's pattern);
+hull_ref_face_depth at the manip step's two calls
 (mesh-mesh: N = 43 008, V = 24, F = 44, K = 2, lateral filter, slack per
 instance, masked padding vertices; box-mesh: N = 28 672, V = 8, F = 44,
 K = 2, no mask, scalar slack); face_sat_depth at N = 8192, V = 32, F = 60,
@@ -59,6 +62,9 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the live lanes of the bighull step's pattern: a few deep pairs spread
+# over the compaction's 8192 slots, the rest empty
+FEW_LIVE = (0, 17, 1000, 4095, 5001, 7777, 8191)
 
 
 def _event_ms(fn, reps=20):
@@ -250,10 +256,24 @@ def _fixture_pairs(rng, N):
     return [out[k] for k in order]
 
 
-def _mtv_entry(mtv_query, args):
+def _mtv_work(N, live, improved, V, E, F, K):
+    """(bytes, flops) of mtv_query over N lanes: ``live`` lanes read every
+    table once and scan 2F face axes against 2V vertices, and K^2 cross
+    axes and 2E edge scores in round 1 and, on the ``improved`` lanes, in
+    round 2; an empty slot shows itself by both hulls' face masks, A's
+    edge masks (all zero, so B's are never read) and A's first face
+    normal; every lane writes its result (chip_smoke.py's count)."""
+    nbytes = (4 * live * (6 * V + 14 * E + 8 * F + 30)
+              + 4 * (N - live) * (2 * F + E + 3) + 16 * N)
+    flops = live * 2 * F * 2 * V * 5 + (live + improved) * (
+        K * K * 2 * V * 5 + 2 * E * 12)
+    return nbytes, flops
+
+
+def _mtv_entry(mtv_query, args, live=None):
     """Time mtv_query on args, or {"refused": ...}; with the lanes round 1
-    improved, and the bound of every lane live in round 1 and those in
-    round 2."""
+    improved, and the bound of the ``live`` lanes (all when None), the
+    rest read as empty slots (_mtv_work)."""
     m = _measure_or_refused(lambda: mtv_query.mtv_query_cuda(*args),
                             "mtv_query_kernel")
     if "refused" in m:
@@ -263,9 +283,9 @@ def _mtv_entry(mtv_query, args):
     m["improved_by_round_1"] = int((d1 < d0).sum())
     N, V = args[0].shape[0], args[0].shape[1]
     E, F, K = args[2].shape[1], args[6].shape[1], 16
-    m.update(_bound(4 * N * (6 * V + 14 * E + 8 * F + 30) + 16 * N,
-                    N * 2 * F * 2 * V * 5 + (N + m["improved_by_round_1"])
-                    * (K * K * 2 * V * 5 + 2 * E * 12)))
+    live = N if live is None else live
+    m.update(_bound(*_mtv_work(N, live, m["improved_by_round_1"], V, E, F,
+                               K)))
     return m
 
 
@@ -287,7 +307,8 @@ def main():
         mtv_query={}, hull_ref_face_depth={}, face_sat_depth={},
         support_minmax={})
     rng = np.random.default_rng(0)
-    for N, n in ((1024, 42), (4096, 42), (4096, 6), (1024, 66), (256, 128)):
+    for N, n in ((1024, 42), (4096, 42), (4096, 6), (1024, 66), (256, 128),
+                 (8192, 42), (65536, 42)):
         A = torch.tensor(_spd(rng, N, n), dtype=torch.float32, device="cuda")
         b = torch.randn(N, n, device="cuda")
         m = _measure_or_refused(lambda: chol.chol_solve_cuda(A, b),
@@ -297,7 +318,8 @@ def main():
         m.update(_bound(N * (n * n + 2 * n) * 4,
                         N * (n ** 3 / 3 + 2 * n * n)))
         out["chol_solve"][f"N{N}_n{n}"] = m
-    for N, n in ((1024, 42), (1024, 66), (256, 128)):
+    for N, n in ((1024, 42), (1024, 66), (256, 128), (8192, 42),
+                 (65536, 42)):
         A = torch.tensor(_spd(rng, N, n), dtype=torch.float32, device="cuda")
         m = _measure_or_refused(lambda: chol_factor.chol_factor_cuda(A),
                                 "chol_factor_kernel")
@@ -320,6 +342,14 @@ def main():
     pebbles = _fixture_pairs(rng, 8192)
     out["mtv_query"]["N8192_bighull_V320_E954_F636_K16_r2"] = _mtv_entry(
         mtv_query, pebbles)
+    # the bighull step's pattern: a few live lanes among the deep-pair
+    # compaction's empty slots (every table zero)
+    dead = torch.ones(8192, dtype=torch.bool, device="cuda")
+    dead[list(FEW_LIVE)] = False
+    for a in pebbles:
+        a[dead] = 0.0
+    out["mtv_query"]["N8192_bighull_7_live"] = _mtv_entry(
+        mtv_query, pebbles, live=len(FEW_LIVE))
     del pebbles
     # the manip step's two hull_ref_face_depth calls
     for name, N, V, box in (("mesh_mesh", 43008, 24, False),

@@ -3,10 +3,12 @@ on one NVIDIA GPU.
 
     PYTHONPATH=. python3 scripts/torch_mtv_regimes.py
 
-csrc/mtv_query.cu stages every table of an instance in shared memory when
-they fit the 47 KB a block gets without an opt-in (the staged layout, with
-the edge ranking), and otherwise reads the edge and face tables from device
-memory (Big, with K warp-wide minima for the edges).  This script builds a
+csrc/mtv_query.cu stages every table of an instance in one warp's share
+of the 47 KB a block gets without an opt-in when they fit (the staged
+layout: a warp an instance, the edge ranking), and otherwise takes the
+block layout (Big: a block of eight warps an instance, the tables in up to
+half the card's shared memory, each warp's K smallest edge keys ranked
+across the block).  This script builds a
 copy of the source whose launcher always picks Big and times it beside the
 shipped kernel on the same inputs at the manip step's tables (V = 24,
 E = 56, F = 34, K = 16, 2 rounds): every lane live at N = 8192 and 1024,
@@ -45,12 +47,14 @@ def _runner(cfn, args):
     N = args[0].shape[0]
     depth = torch.empty(N, device="cuda")
     n = torch.empty(N, 3, device="cuda")
+    turns = torch.zeros(2, dtype=torch.int64, device="cuda")
     ptrs = [t.data_ptr() for t in args]
 
     def run():
+        turns.zero_()  # the block layout's turn counters
         rc = cuda_build.launch(args[0].device, cfn, *ptrs, depth.data_ptr(),
-                               n.data_ptr(), N, V, E, F, mtv_query.K_EDGE,
-                               mtv_query.REFINE_ROUNDS)
+                               n.data_ptr(), turns.data_ptr(), N, V, E, F,
+                               mtv_query.K_EDGE, mtv_query.REFINE_ROUNDS)
         if rc != 0:
             raise RuntimeError(f"mtv_query launch failed: cudaError {rc}")
     return run, depth, n

@@ -181,7 +181,9 @@ def test_put_model_defaults_to_the_card_and_raises_without_one():
 
 @pytest.mark.parametrize("script, kernel, edits", [
     ("torch_support_stamps", "support_minmax", "_STAMPS"),
-    ("torch_mtv_regimes", "mtv_query", "_ALWAYS_BIG")])
+    ("torch_mtv_regimes", "mtv_query", "_ALWAYS_BIG"),
+    ("torch_chol_stamps", "chol_solve", "_STAMPS"),
+    ("torch_mtv_stamps", "mtv_query", "_STAMPS")])
 def test_measurement_variants_still_apply(script, kernel, edits):
     """The measurement scripts build variants of a shipped kernel (stamped,
     or with one layout forced) by text edits of its source: every edited
@@ -195,3 +197,26 @@ def test_measurement_variants_still_apply(script, kernel, edits):
     src = pathlib.Path(cuda_build.source_path(kernel)).read_text()
     for old, _ in getattr(mod, edits):
         assert old in src, old
+
+
+@pytest.mark.parametrize("N, live, improved", [(8192, 7, 3), (256, 256, 40)])
+def test_kernel_bench_counts_mtv_work_as_chip_smoke(N, live, improved):
+    """scripts/torch_kernel_bench.py keeps its own count of the exact
+    query's bytes and flops (it runs against older commits too): it must
+    equal chip_smoke.py's on the bighull step's pattern (a few live lanes,
+    the rest empty slots) and with every lane live."""
+    import importlib.util
+    from mujoco_sim_tpu_torch.ops import mtv_query
+    mods = {}
+    for name, path in (("torch_kernel_bench",
+                        ROOT / "scripts" / "torch_kernel_bench.py"),
+                       ("chip_smoke", ROOT / "chip_smoke.py")):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    V, E, F, K = 320, 954, 636, mtv_query.K_EDGE
+    b = dict(wA=torch.zeros(live, V, 3), heA=torch.zeros(live, E, 2, 3),
+             nfA=torch.zeros(live, F, 3))
+    assert (mods["torch_kernel_bench"]._mtv_work(N, live, improved, V, E, F,
+                                                 K)
+            == mods["chip_smoke"]._mtv_work(b, [live, improved], N))

@@ -108,10 +108,12 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", kernel_cases.CHOL_BIG_CASES)
 def test_chol_kernels_above_the_size_classes(case, cuda_device):
-    """n > 64: one block a system, in shared memory up to n = 239 and in
-    device memory beyond (n = 300), a stiff 1e9 row and a floored pivot:
-    chol_solve and chol_factor launch their kernels and agree with their
-    twins at the band of the size classes (2e-5)."""
+    """n > 64: one block a system, factored in panels of 32 columns in
+    shared memory up to n = 236 and in device memory beyond, both sides of
+    every panel, thread-count and memory edge (utils/kernel_cases
+    CHOL_BIG_SIZES), a batch of 1031 at n = 66, a stiff 1e9 row and a
+    floored pivot: chol_solve and chol_factor launch their kernels and
+    agree with their twins at the band of the size classes (2e-5)."""
     A, b = kernel_cases.chol_big_case(case)
     At = torch.tensor(A, dtype=torch.float32, device=cuda_device)
     bt = torch.tensor(b, dtype=torch.float32, device=cuda_device)
@@ -274,29 +276,111 @@ def _big_case(case, N, dev):
             for k in kernel_cases.MTV_ORDER]
 
 
+# the live lanes of the 8192-slot batch with few live: where the bighull
+# step's deep-pair compaction puts a handful of pairs among empty slots
+FEW_LIVE = (0, 17, 1000, 4095, 5001, 7777, 8191)
+
+
+def _big_batch(case, N, live, dev):
+    """The query's arguments over N lanes, the twin's result on each lane
+    (from the distinct instances only: the twin's supports over every lane
+    of an 8192 batch would not fit the card), and the mask of empty slots.
+    live None: mtv_big_case at N.  "few": FEW_LIVE lanes live, the rest
+    empty slots (every table zero).  "all": every lane live, the live
+    instances of mtv_big_case(case, 40) repeated."""
+    if live is None:
+        args = _big_case(case, N, dev)
+        empty = torch.zeros(N, dtype=torch.bool, device=dev)
+        empty[2::5] = True
+        rd, rn = mtv_query.mtv_query_plain(*args)
+        return args, rd, rn, empty
+    base = _big_case(case, 40, dev)
+    keep = torch.tensor([i for i in range(40) if i % 5 != 2], device=dev)
+    base = [a[keep] for a in base]
+    rd0, rn0 = mtv_query.mtv_query_plain(*base)
+    if live == "all":
+        idx = torch.arange(N, device=dev) % len(keep)
+        args = [a[idx].contiguous() for a in base]
+        return (args, rd0[idx], rn0[idx],
+                torch.zeros(N, dtype=torch.bool, device=dev))
+    lanes = torch.tensor(FEW_LIVE, device=dev)
+    args = [a.new_zeros((N,) + a.shape[1:]) for a in base]
+    for a, src in zip(args, base):
+        a[lanes] = src[: len(FEW_LIVE)]
+    empty = torch.ones(N, dtype=torch.bool, device=dev)
+    empty[lanes] = False
+    # an empty slot's twin: (inf, A's first face normal), zeros here
+    rd_e, rn_e = mtv_query.mtv_query_plain(*[a[1:2] for a in args])
+    rd = rd_e.expand(N).clone()
+    rn = rn_e.expand(N, 3).clone()
+    rd[lanes], rn[lanes] = rd0[: len(FEW_LIVE)], rn0[: len(FEW_LIVE)]
+    return args, rd, rn, empty
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", kernel_cases.MTV_BIG_CASES)
-@pytest.mark.parametrize("N", [5, 130])
-def test_mtv_query_kernel_big_tables(case, N, cuda_device):
+@pytest.mark.parametrize("N,live", [(5, None), (130, None), (8192, "few"),
+                                    (8192, "all")])
+def test_mtv_query_kernel_big_tables(case, N, live, cuda_device):
     """Tables compiled from full hulls, over the 47 KB a block gets without
-    an opt-in (pebble256: vertices staged whole) and past 227 KB
-    (pebble1200: vertices in tiles): one launch, depth to 2e-5 of the twin,
-    axes equal but at a near-tie of the twin's, and every empty slot (every
-    fifth lane from the third) bit for bit."""
-    args = _big_case(case, N, cuda_device)
+    an opt-in (pebble256) and past half the 227 KB a block can opt into
+    (pebble1200: edges and faces read from device memory): one launch of
+    the block layout, depth to 2e-5 of the twin, axes equal but at a
+    near-tie of the twin's, and every empty slot bit for bit; at 8192
+    lanes with the bighull step's pattern (a few live among empty slots)
+    and with every lane live."""
+    args, rd, rn, empty = _big_batch(case, N, live, cuda_device)
     before = mtv_query.LAUNCHES
     dep, n = mtv_query.mtv_query(*args)
     torch.cuda.synchronize()
     assert mtv_query.LAUNCHES == before + 1
-    rd, rn = mtv_query.mtv_query_plain(*args)
-    empty = torch.zeros(N, dtype=torch.bool, device=cuda_device)
-    empty[2::5] = True
     assert torch.equal(dep[empty], rd[empty])
     assert torch.equal(n[empty], rn[empty])
     assert bool(torch.isfinite(dep[~empty]).all())
     torch.testing.assert_close(dep, rd, rtol=1e-5, atol=2e-5)
     axis_off = ((n * rn).sum(-1) < 1 - 1e-5) & ~empty
     assert int(axis_off.sum()) <= max(1, N // 100)
+
+
+def _random_hull_pairs(rng, N, V, E, F):
+    """Random hull pairs of any table size (utils/kernel_cases.mtv_case's
+    generator): clouds of V points, E random local edges (a fifth masked),
+    F unit face normals (some masked), as the query's 16 arguments."""
+    out = {}
+    for side in "AB":
+        R = np.linalg.qr(rng.normal(size=(N, 3, 3)))[0]
+        R[:, :, 0] *= np.sign(np.linalg.det(R))[:, None]
+        p = rng.normal(size=(N, 3)) * 0.1
+        nf = rng.normal(size=(N, F, 3))
+        nf /= np.linalg.norm(nf, axis=-1, keepdims=True)
+        fm = (rng.uniform(size=(N, F)) > 0.15).astype(np.float64)
+        fm[:, 0] = 1.0
+        out.update({
+            "w" + side: p[:, None] + (rng.normal(size=(N, V, 3)) * 0.3)
+            @ R.transpose(0, 2, 1),
+            "he" + side: rng.normal(size=(N, E, 2, 3)) * 0.3,
+            "hm" + side: (rng.uniform(size=(N, E)) > 0.2).astype(np.float64),
+            "nf" + side: nf, "fm" + side: fm, "R" + side: R, "p" + side: p,
+            "cyl" + side: np.zeros((N, 3))})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,E,F", [(4000, 56, 34), (24, 8000, 34)])
+def test_mtv_query_kernel_tables_in_device_memory(V, E, F, cuda_device):
+    """Tables past half the card's shared memory that the block layout
+    reads from device memory: 4000-vertex clouds (the vertices scanned from
+    device memory), 8000 edges (the edge keys computed again each pass):
+    depth to 2e-5 of the twin, axes equal but at a near-tie."""
+    b = _random_hull_pairs(np.random.default_rng(7), 9, V, E, F)
+    args = [torch.tensor(b[k], dtype=torch.float32, device=cuda_device)
+            for k in kernel_cases.MTV_ORDER]
+    dep, n = mtv_query.mtv_query(*args)
+    torch.cuda.synchronize()
+    rd, rn = mtv_query.mtv_query_plain(*args)
+    assert bool(torch.isfinite(dep).all())
+    torch.testing.assert_close(dep, rd, rtol=1e-5, atol=2e-5)
+    assert int(((n * rn).sum(-1) < 1 - 1e-5).sum()) <= 1
 
 
 @pytest.mark.cuda
