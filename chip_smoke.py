@@ -49,7 +49,7 @@ with the count adds in it; no graph that is timed counts) and holds each
 count to the eager steps' over the same steps from the same state (the
 wrappers' counts and the card's), and prints both paths' env-steps/s
 (also over the same steps from the same state), host and device ms a
-step, device busy share and the graph's pool.  Builds the seven hand-written kernels from the
+step, device busy share and the graph's pool.  Builds the eight hand-written kernels from the
 checkout's own sources, holds each against its plain PyTorch twin, and
 checks the results.  Run from the root of a checkout, with one card:
 
@@ -239,14 +239,15 @@ def _ptxas(text):
 def build():
     from mujoco_sim_tpu_torch.ops import (chol, chol_factor, cuda_build,
                                           face_sat, hull_sat, loops,
-                                          mtv_query, support_minmax)
+                                          mtv_query, support_minmax,
+                                          trace_stamp)
     t0 = time.perf_counter()
     info = cuda_build.build_all()
     for mod in (chol, chol_factor, hull_sat, mtv_query, support_minmax,
-                face_sat, loops):
+                face_sat, loops, trace_stamp):
         mod._load()
-    if len(info) != 7:
-        raise AssertionError(f"expected seven kernels, built {sorted(info)}")
+    if len(info) != 8:
+        raise AssertionError(f"expected eight kernels, built {sorted(info)}")
     phase("build", wall_seconds=time.perf_counter() - t0,
           cuda_driver=loops.driver_version(), kernels={
         name: dict(source=os.path.relpath(cuda_build.source_path(name), ROOT),
@@ -287,6 +288,83 @@ def graph_loop_vs_plain():
              bound_ms=bound, bound_by=by)
     phase("graph_loop_vs_plain", cases=cases, max_abs_err=err, **t)
     return err, t
+
+
+def trace_stamp_vs_plain():
+    """The recorder's stage stamp (csrc/trace_stamp.cu) against its plain
+    twin, on the main path's shapes: a ring of RING_ROWS x len(STAMPS)
+    int64 filled with a marker and a table of len(SLOTS) counts drawn at
+    random, one on the card and one on the CPU.  One seeded sequence of
+    writes runs through both: 48 steps, each stamping a random subset of
+    the stamps in stage order, the step count moved on after each, from a
+    count that crosses the ring's end.  The twin writes each write's index
+    in place of a time.  The cells written (those that no longer hold the
+    marker) and the whole table must agree bit for bit; the card's values,
+    taken in the order of the writes, must never fall, must rise over the
+    sequence, and must span no more than the host's clock read before the
+    first launch and after the final sync.  Timed beside the twin."""
+    from mujoco_sim_tpu_torch.ops import trace_stamp
+    from mujoco_sim_tpu_torch.runtime import profiler
+    rng = np.random.default_rng(15)
+    rows, nst = profiler.RING_ROWS, len(profiler.STAMPS)
+    step, count = profiler.STEP, profiler.SLOTS.index("trace_stamp")
+    table_p = torch.tensor(rng.integers(0, 2 ** 40, len(profiler.SLOTS)),
+                           dtype=torch.int64)
+    table_p[step] = rows - 24
+    ring_p = torch.full((rows, nst), -1, dtype=torch.int64)
+    ring_c, table_c = ring_p.cuda(), table_p.cuda()
+    writes = [sorted(int(s) for s in rng.choice(
+        nst, size=int(rng.integers(1, nst + 1)), replace=False))
+        for _ in range(48)]
+    torch.cuda.synchronize()
+    t0 = time.time_ns()
+    for slots in writes:
+        for s in slots:
+            trace_stamp.stamp_cuda(ring_c, table_c, s, step, count)
+        table_c[step].add_(1)
+    torch.cuda.synchronize()
+    host_ns = time.time_ns() - t0
+    n = 0
+    for slots in writes:
+        for s in slots:
+            trace_stamp.stamp_plain(ring_p, table_p, s, step, n, count)
+            n += 1
+        table_p[step] += 1
+    ring_c, table_c = ring_c.cpu(), table_c.cpu()
+    written = ring_p != -1
+    if not torch.equal(ring_c != -1, written):
+        raise AssertionError("trace_stamp: the card wrote other cells than "
+                             "its twin")
+    if not torch.equal(table_c, table_p):
+        raise AssertionError(f"trace_stamp: the table differs from the "
+                             f"twin's at slots "
+                             f"{(table_c != table_p).nonzero().tolist()}")
+    vals = ring_c[written][ring_p[written].argsort()]
+    steps = vals.diff()
+    spread = int(vals[-1] - vals[0])
+    if int(vals[0]) <= 0 or bool((steps < 0).any()) or spread <= 0:
+        raise AssertionError("trace_stamp: the card's stamps do not rise "
+                             "in the order of the writes")
+    if spread > host_ns:
+        raise AssertionError(f"trace_stamp: the stamps span {spread} ns, "
+                             f"the host's bracket {host_ns} ns")
+    ring1 = torch.zeros((rows, nst), dtype=torch.int64, device="cuda")
+    table1 = torch.zeros(len(profiler.SLOTS), dtype=torch.int64,
+                         device="cuda")
+    ring1p, table1p = ring1.cpu(), table1.cpu()
+    bound, by = _bound(32, 0)
+    t = dict(ms=_median_ms(lambda: trace_stamp.stamp_cuda(
+                 ring1, table1, 0, step, count)),
+             device_ms=_graph_ms(lambda: trace_stamp.stamp_cuda(
+                 ring1, table1, 0, step, count)),
+             plain_ms=_median_ms(lambda: trace_stamp.stamp_plain(
+                 ring1p, table1p, 0, step, 0, count)),
+             bound_ms=bound, bound_by=by)
+    phase("trace_stamp_vs_plain", ring=[rows, nst], writes=n,
+          cells_written=int(written.sum()), table_equal=True,
+          span_ns=spread, host_bracket_ns=host_ns,
+          least_step_ns=int(steps[steps > 0].min()), **t)
+    return n, t
 
 
 def _spd(rng, N, n):
@@ -973,21 +1051,53 @@ def _settled(d, half_lo, z_hi, speed):
 
 def _reset_counts():
     from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
-                                          hull_sat, mtv_query, support_minmax)
+                                          hull_sat, mtv_query, support_minmax,
+                                          trace_stamp)
     for mod in (chol, chol_factor, face_sat, hull_sat, mtv_query,
-                support_minmax):
+                support_minmax, trace_stamp):
         mod.LAUNCHES = 0
 
 
 def _counts():
     from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
-                                          hull_sat, mtv_query, support_minmax)
+                                          hull_sat, mtv_query, support_minmax,
+                                          trace_stamp)
     return dict(chol_solve=chol.LAUNCHES,
                 chol_factor=chol_factor.LAUNCHES,
                 face_sat_depth=face_sat.LAUNCHES,
                 hull_ref_face_depth=hull_sat.LAUNCHES,
                 mtv_query=mtv_query.LAUNCHES,
-                support_minmax=support_minmax.LAUNCHES)
+                support_minmax=support_minmax.LAUNCHES,
+                trace_stamp=trace_stamp.LAUNCHES)
+
+
+def _span_s(sp):
+    return (sp.end_ns - sp.start_ns) / 1e9
+
+
+def _captures(fn):
+    """fn()'s result, and the graph captures made while it ran as (pool
+    MB, seconds), from their ``graph.capture`` spans (runtime/profiler
+    records those whether or not tracing is on)."""
+    from mujoco_sim_tpu_torch.runtime import profiler
+    n = len(profiler.spans())
+    out = fn()
+    return out, [(sp.attrs["pool_bytes"] / 2**20, _span_s(sp))
+                 for sp in profiler.spans()[n:]
+                 if sp.name == "graph.capture"]
+
+
+def _traced_spans(fn, name):
+    """fn() with the recorder's host spans on (runtime/profiler.tracing
+    with no device: nothing enters a graph); its result and the spans
+    named ``name`` it recorded."""
+    from mujoco_sim_tpu_torch.runtime import profiler
+    profiler.clear_spans()
+    with profiler.tracing():
+        out = fn()
+    got = [sp for sp in profiler.spans() if sp.name == name]
+    profiler.clear_spans()
+    return out, got
 
 
 def _timed_rollouts(run, reps):
@@ -1024,6 +1134,7 @@ REPLAY_KERNELS = {
     "mtv_query": ("mtv_query_kernel", "mtv_query_block_kernel"),
     "support_minmax": ("support_minmax_kernel",),
     "graph_loop": ("set_any",),
+    "trace_stamp": ("trace_stamp_kernel",),
 }
 _KERNEL_OF = {g: k for k, gs in REPLAY_KERNELS.items() for g in gs}
 _KERNEL_NAME = re.compile(r"(?<!\w)(" + "|".join(_KERNEL_OF) + r")(?!\w)")
@@ -1099,18 +1210,19 @@ def count_eager(eager, nsteps):
     """eager() (nsteps eager steps) twice: under the profiler, counting
     nothing (device ms and CUDA ops a step, each hand-written kernel's
     device ms by name), then with the wrappers' counts (LAUNCHES) and the
-    counts on the card (cuda_build.counting) set to 0 just before and
+    counts on the card (runtime/profiler.counting) set to 0 just before and
     read just after, its final fields kept: the reference of
     hold_replay_counts."""
-    from mujoco_sim_tpu_torch.ops import cuda_build, loops
+    from mujoco_sim_tpu_torch.ops import loops
+    from mujoco_sim_tpu_torch.runtime import profiler
     eag = _profile(eager, nsteps)
     dev = torch.device("cuda", torch.cuda.current_device())
     _reset_counts()
     loops.LAUNCHES = 0
-    with cuda_build.counting(dev):
-        c0 = cuda_build.device_counts(dev)
+    with profiler.counting(dev):
+        c0 = profiler.counts(dev)
         out = eager()
-        c1 = cuda_build.device_counts(dev)
+        c1 = profiler.counts(dev)
     eag.update(wrappers=_counts(), loop_launches=loops.LAUNCHES,
                on_card={k: c1[k] - c0[k] for k in REPLAY_KERNELS},
                final={k: v.clone() for k, v in _graph_fields(out).items()})
@@ -1126,7 +1238,7 @@ def hold_replay_counts(what, replay, eager, nsteps, eag=None):
     held at once).  replay() is profiled first on the graph as the path
     captured it, counting nothing: device ms and CUDA ops a step.  Then
     every graph is dropped and replay() runs twice with counts kept on the
-    card (cuda_build.counting): its first call captures the graph again,
+    card (runtime/profiler.counting): its first call captures the graph again,
     now with each wrapper's count add in it (a replay adds its launches, a
     WHILE body's once an iteration), and the second call's replays are
     counted.  They must end where the eager steps end, bit for bit, and
@@ -1136,12 +1248,13 @@ def hold_replay_counts(what, replay, eager, nsteps, eag=None):
     loops, however often a WHILE body runs.  The WHILE nodes' predicate
     (graph_loop) has no eager launch and must only have run.  The counted
     graph is dropped and the path's graph captured again without counts,
-    as the phase had it.
+    as the phase had it; that recapture's pool MB and seconds (_captures)
+    go into ``captures``, one pair a graph.
     A kernel's device ms a launch is the mean of its launches in the eager
     trace (the same launches on the same inputs).  Returns the replays'
     profile (``counts``: the card's), the kernels' ms a launch and the
     eager steps' device ms and CUDA ops a step."""
-    from mujoco_sim_tpu_torch.ops import cuda_build
+    from mujoco_sim_tpu_torch.runtime import profiler
     from mujoco_sim_tpu_torch.utils import graph
     eag = eag or count_eager(eager, nsteps)
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1150,14 +1263,14 @@ def hold_replay_counts(what, replay, eager, nsteps, eag=None):
     # capture's warm-up call (manip @65 536: 77.4 GB reserved without)
     graph.clear_all()
     torch.cuda.empty_cache()
-    with cuda_build.counting(dev):
+    with profiler.counting(dev):
         replay()                               # the counted capture
-        c0 = cuda_build.device_counts(dev)
+        c0 = profiler.counts(dev)
         got = replay()
-        c1 = cuda_build.device_counts(dev)
+        c1 = profiler.counts(dev)
     graph.clear_all()
     torch.cuda.empty_cache()
-    replay()                      # captured again, without counts
+    _, caps = _captures(replay)           # captured again, without counts
     diffs = {k: v for k, v in _diffs(_graph_fields(got),
                                      eag["final"]).items() if v != 0.0}
     if diffs:
@@ -1178,6 +1291,7 @@ def hold_replay_counts(what, replay, eager, nsteps, eag=None):
         raise AssertionError(f"{what}: no WHILE predicate ran in the "
                              "replays")
     rep["counts"] = on_card
+    rep["captures"] = caps
     # a kernel's device ms a launch: the mean of its launches that the
     # eager trace shows
     rep["eager_ms_per_launch"] = {
@@ -1266,9 +1380,13 @@ def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
     _reset_counts()
     loops.LAUNCHES = 0
     t0 = time.perf_counter()
-    x = run(x0, nsteps)
+    x, caps = _captures(lambda: run(x0, nsteps))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    # the path's own captures, made by its first call
+    if not caps:
+        raise AssertionError(f"{what}: its first call made no capture")
+    pool_mb, capture_s = (sum(c) for c in zip(*caps))
     counts = dict(_counts(), graph_loop=loops.LAUNCHES)
     GRAPH_COUNTS[what] = counts
     missing = [k_ for k_ in need if counts[k_] == 0]
@@ -1276,9 +1394,6 @@ def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
         raise AssertionError(f"{what}: {missing} never launched on the "
                              "graph main path")
     peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
-    cap = graph_of().last
-    pool_mb, capture_s = cap.pool_mb, cap.capture_s
-    del cap
     diffs = _diffs(_graph_fields(x), _graph_fields(eager_final))
     bad = {k_: v for k_, v in diffs.items() if not v <= band}
     if bad:
@@ -3251,11 +3366,10 @@ def _server_step_vs_eager(srv, sim, capture_calls, what):
             graph_ms = (time.perf_counter() - t0) * 1e3
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        cap = sim.step_graph.last
-        pool_mb, capture_s = cap.pool_mb, cap.capture_s
-        del cap
         rep = hold_replay_counts(what, lambda: sim.step_graph(sim.m, d),
                                  lambda: engine.step(sim.m, d), 1)
+        # the sim thread made the graph's own capture, untimed here
+        pool_mb, capture_s = rep["captures"][-1]
     diffs = {k: float((getattr(dg, k) - getattr(de, k)).abs().max())
              if getattr(dg, k).numel() else 0.0 for k in GRAPH_FIELDS}
     if any(v != 0.0 for v in diffs.values()):
@@ -3263,8 +3377,8 @@ def _server_step_vs_eager(srv, sim, capture_calls, what):
     return probe, dict(held="bit for bit", max_abs_diff=diffs,
                        replay_kernels=_replay_record(rep, 1),
                        sync_free_replay=True, eager_step_ms=eager_ms,
-                       graph_step_ms=graph_ms, pool_mb=pool_mb,
-                       capture_s=capture_s,
+                       graph_step_ms=graph_ms, recapture_pool_mb=pool_mb,
+                       recapture_s=capture_s,
                        captures=sim.step_graph.captures)
 
 
@@ -3558,9 +3672,10 @@ def parallel_main_path(card):
     loops.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = run(mR, dS)
+    out, caps = _captures(lambda: run(mR, dS))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    pools, capture_s = [list(x) for x in zip(*caps)]
     graph_counts = dict(_counts(), graph_loop=loops.LAUNCHES)
     shard_diff = max(float((o.qpos - e.qpos).abs().max()) for o, e in
                      zip(out.shards, eager))
@@ -3577,8 +3692,6 @@ def parallel_main_path(card):
         run.graphs[0](mR.on("cuda:0"), dS.shards[0])
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    pools = [g.last.pool_mb for g in run.graphs]
-    capture_s = [g.last.capture_s for g in run.graphs]
     shards = list(zip(run.graphs, mesh.local_devices, out.shards))
     rep = hold_replay_counts(
         "parallel", lambda: [g.run(mR.on(dv), sh, n=3)
@@ -3643,14 +3756,17 @@ def parallel_main_path(card):
             d, _ = pmesh.rollout_traj(m, d, chunk)
 
     # in turns (chunked, egress, egress, chunked), best of 2 each;
-    # rollout_collect times each chunk's read-out (the wait on its copy
-    # and the memcpy out of the pinned buffer) into cache["read_s"]
+    # rollout_collect's span egress.read times each chunk's read-out (the
+    # wait on its copy and the memcpy out of the pinned buffer)
     times = {"c": [], "e": []}
-    for c in "ceec":
-        times[c] += _timed_rollouts(chunked if c == "c" else (
-            lambda: collected.append(egress.rollout_collect(
-                m, d0, n_eg, chunk, jit_cache=cache))), 1)
-    reads = cache["read_s"]
+
+    def turns():
+        for c in "ceec":
+            times[c] += _timed_rollouts(chunked if c == "c" else (
+                lambda: collected.append(egress.rollout_collect(
+                    m, d0, n_eg, chunk, jit_cache=cache))), 1)
+    _, read_spans = _traced_spans(turns, "egress.read")
+    reads = [_span_s(sp) for sp in read_spans]
     rate_chunked = NENV * n_eg / min(times["c"])
     rate_egress = NENV * n_eg / min(times["e"])
     ref_traj = traj.cpu().numpy()
@@ -3850,6 +3966,7 @@ def main(argv):
         fsat_err, fsat_t, fsat_launches = face_sat_vs_plain()
         rand_err = kernels_vs_plain()
         gl_err, gl_t = graph_loop_vs_plain()
+        ts_writes, ts_t = trace_stamp_vs_plain()
         done("kernels")
     if want("box"):
         m, qpos, qvel, box_launches, d_rest = box_main_path(card)
@@ -4022,6 +4139,14 @@ def main(argv):
              ms=gl_t["ms"], device_ms=gl_t["device_ms"],
              plain_ms=gl_t["plain_ms"], bound_ms=gl_t["bound_ms"],
              bound_by=gl_t["bound_by"], library_ms=gl_t["library_ms"]),
+        # the recorder's stage stamp: no graph of this script traces, so
+        # its launches are those of its check (trace_stamp_vs_plain)
+        dict(name="trace_stamp", route="cuda",
+             source=src + "trace_stamp.cu", replaces=None,
+             launches=ts_writes, max_abs_err=0, ms=ts_t["ms"],
+             device_ms=ts_t["device_ms"], plain_ms=ts_t["plain_ms"],
+             bound_ms=ts_t["bound_ms"], bound_by=ts_t["bound_by"],
+             library_ms=None),
     ]
     # by path: the wrappers' counts over each graph main path (its warm-up
     # call and its capture; ``launches`` is the manip path's, or the

@@ -35,6 +35,7 @@ from mujoco_sim_tpu_torch.ops import tendon as tendon_mod
 from mujoco_sim_tpu_torch.ops import passive as passive_mod
 from mujoco_sim_tpu_torch.ops import integrate as integrate_mod
 from mujoco_sim_tpu_torch.ops import math as mm
+from mujoco_sim_tpu_torch.runtime import profiler
 from mujoco_sim_tpu_torch.utils.struct import map_leaves
 
 
@@ -47,6 +48,7 @@ def _true_f32_matmuls():
     torch.set_float32_matmul_precision("highest")
 
 
+@profiler.spanned("engine.put_model")
 def put_model(m: Model, dtype=torch.float32, device="cuda") -> Model:
     """Cast float leaves to ``dtype`` and move every leaf to ``device``
     (the card unless the caller names another; without a CUDA device the
@@ -241,6 +243,7 @@ def _com_dict(m: Model, d: Data) -> dict:
 
 
 def fwd_position(m: Model, d: Data) -> Data:
+    profiler.stamp("position.start", d)
     kin = smooth.kinematics(m, d.qpos, d.mocap_pos, d.mocap_quat)
     com = smooth.com_pos(m, kin, d.body_mass, d.body_inertia)
     qM = smooth.crb(m, com)
@@ -262,11 +265,14 @@ def fwd_position(m: Model, d: Data) -> Data:
     )
     if m.ntendon:
         d = _tendon(m, d)
+    profiler.stamp("position.kinematics", d)
     # collision + constraint assembly
     from mujoco_sim_tpu_torch.ops import collision as collision_mod
     from mujoco_sim_tpu_torch.ops import constraint as constraint_mod
     d = collision_mod.collision(m, d)
+    profiler.stamp("position.collision", d)
     d = constraint_mod.make_constraint(m, d, com)
+    profiler.stamp("position.end", d)
     return d
 
 
@@ -282,6 +288,7 @@ def _tendon(m: Model, d: Data) -> Data:
 
 
 def fwd_velocity(m: Model, d: Data) -> Data:
+    profiler.stamp("velocity.start", d)
     com = _com_dict(m, d)
     com_full = dict(com, cinert=_cinert(m, d))
     vel = smooth.com_vel(m, com_full, d.qvel)
@@ -292,9 +299,11 @@ def fwd_velocity(m: Model, d: Data) -> Data:
     qfrc_passive, qsp, qdm, qgc = passive_mod.passive(
         m, com, d.qpos, d.qvel, d.xipos, d.body_mass, ten=ten,
         fluid_state=fluid_state)
-    return d.replace(cvel=vel["cvel"], cdof_dot=vel["cdof_dot"],
-                     qfrc_bias=qfrc_bias, qfrc_passive=qfrc_passive,
-                     qfrc_spring=qsp, qfrc_damper=qdm, qfrc_gravcomp=qgc)
+    d = d.replace(cvel=vel["cvel"], cdof_dot=vel["cdof_dot"],
+                  qfrc_bias=qfrc_bias, qfrc_passive=qfrc_passive,
+                  qfrc_spring=qsp, qfrc_damper=qdm, qfrc_gravcomp=qgc)
+    profiler.stamp("velocity.end", d)
+    return d
 
 
 def _cinert(m: Model, d: Data):
@@ -363,7 +372,9 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     Tendon rows read the tendon's length and velocity and take gear[0]
     times its moment row; site rows take the site jacobian (minus the
     refsite's) in the site/refsite frame dotted with the 6D gear."""
+    profiler.stamp("actuation.start", d)
     if m.nu == 0:
+        profiler.stamp("actuation.end", d)
         return d
     dtype = d.qpos.dtype
     pl = m.layout.const("actuation", lambda: _actuation_plan_np(m), dtype)
@@ -531,12 +542,15 @@ def fwd_actuation(m: Model, d: Data) -> Data:
     if moment_ten is not None:
         qfrc = qfrc + torch.einsum("bs,bsv->bv", force[:, pl["ten_rows"]],
                                    moment_ten)
-    return d.replace(act_dot=act_dot, actuator_length=length,
-                     actuator_velocity=velocity, actuator_force=force,
-                     qfrc_actuator=qfrc)
+    d = d.replace(act_dot=act_dot, actuator_length=length,
+                  actuator_velocity=velocity, actuator_force=force,
+                  qfrc_actuator=qfrc)
+    profiler.stamp("actuation.end", d)
+    return d
 
 
 def fwd_acceleration(m: Model, d: Data) -> Data:
+    profiler.stamp("acceleration.start", d)
     com = _com_dict(m, d)
     qfrc_x = support.xfrc_accumulate(m, com, d.xipos, d.xfrc_applied)
     qfrc_smooth = (d.qfrc_passive + d.qfrc_actuator + d.qfrc_applied
@@ -544,18 +558,23 @@ def fwd_acceleration(m: Model, d: Data) -> Data:
     # CPU: cholesky(qM) is the very factor stored in qLD, so this equals
     # the JAX CPU path's solve_chol(qLD, .); CUDA: the fused kernel
     qacc_smooth = chol.chol_solve(d.qM, qfrc_smooth)
-    return d.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth)
+    d = d.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth)
+    profiler.stamp("acceleration.end", d)
+    return d
 
 
 def fwd_constraint(m: Model, d: Data) -> Data:
     from mujoco_sim_tpu_torch.ops import solver as solver_mod
+    profiler.stamp("constraint.start", d)
     if m.nefc_max == 0 or (m.opt.disableflags & int(DisableBit.CONSTRAINT)):
-        return d.replace(qacc=d.qacc_smooth,
-                         qfrc_constraint=torch.zeros_like(d.qacc_smooth))
-    d = solver_mod.solve(m, d)
-    if m.opt.noslip_iterations > 0:
-        from mujoco_sim_tpu_torch.ops import noslip as noslip_mod
-        d = noslip_mod.noslip(m, d)
+        d = d.replace(qacc=d.qacc_smooth,
+                      qfrc_constraint=torch.zeros_like(d.qacc_smooth))
+    else:
+        d = solver_mod.solve(m, d)
+        if m.opt.noslip_iterations > 0:
+            from mujoco_sim_tpu_torch.ops import noslip as noslip_mod
+            d = noslip_mod.noslip(m, d)
+    profiler.stamp("constraint.end", d)
     return d
 
 
@@ -586,6 +605,7 @@ def _energy_plan_np(m: Model):
 
 
 def sensor_energy(m: Model, d: Data) -> Data:
+    profiler.stamp("sensors.start", d)
     dtype = d.qpos.dtype
     g = m.opt.gravity.to(dtype)
     mass = d.body_mass.to(dtype)
@@ -609,7 +629,9 @@ def sensor_energy(m: Model, d: Data) -> Data:
     kinetic = 0.5 * torch.einsum("zv,zvw,zw->z", d.qvel, d.qM, d.qvel)
     d = d.replace(energy=torch.stack([potential + spring, kinetic], dim=-1))
     from mujoco_sim_tpu_torch.ops import sensor as sensor_mod
-    return sensor_mod.sensors(m, d)
+    d = sensor_mod.sensors(m, d)
+    profiler.stamp("sensors.end", d)
+    return d
 
 
 def _dof_active(m: Model, d: Data) -> torch.Tensor:
@@ -739,14 +761,21 @@ def _rk4(m: Model, d: Data) -> Data:
 
 
 def _integrate(m: Model, d: Data) -> Data:
+    """The integrator: the end of a step (``step`` and ``step2``), counted
+    by the recorder (its stamps' row moves on)."""
+    profiler.stamp("integrate.start", d)
     d = d.replace(qacc_warmstart=d.qacc)
     if m.opt.integrator == int(Integrator.RK4):
-        return _rk4(m, d)
-    if m.opt.integrator == int(Integrator.IMPLICIT):
-        return _implicit(m, d, fast=False)
-    if m.opt.integrator == int(Integrator.IMPLICITFAST):
-        return _implicit(m, d, fast=True)
-    return _euler(m, d)
+        d = _rk4(m, d)
+    elif m.opt.integrator == int(Integrator.IMPLICIT):
+        d = _implicit(m, d, fast=False)
+    elif m.opt.integrator == int(Integrator.IMPLICITFAST):
+        d = _implicit(m, d, fast=True)
+    else:
+        d = _euler(m, d)
+    profiler.stamp("integrate.end", d)
+    profiler.count("step.count", d)
+    return d
 
 
 def step(m: Model, d: Data) -> Data:
@@ -792,7 +821,8 @@ def step_with_control(m: Model, d: Data, ctrl_fn, *ctrl_args):
     g = graph.cached("control", ctrl_fn, lambda: graph.StepGraph(
         lambda m_, d_, *a: step_with_control_eager(m_, d_, ctrl_fn, *a),
         all_leaves=True))
-    return g(m, d, *ctrl_args)
+    with profiler.span("engine.step_with_control", d):
+        return g(m, d, *ctrl_args)
 
 
 def inverse(m: Model, d: Data, qacc: torch.Tensor) -> torch.Tensor:

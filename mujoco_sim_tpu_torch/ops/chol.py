@@ -29,6 +29,7 @@ import functools
 import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build, linalg
+from mujoco_sim_tpu_torch.runtime import profiler
 
 LAUNCHES = 0
 
@@ -79,7 +80,7 @@ def chol_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"chol_solve kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
-    cuda_build.count_launch("chol_solve", dev)
+    profiler.count("chol_solve", dev)
     return x
 
 

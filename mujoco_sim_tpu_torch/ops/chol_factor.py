@@ -23,6 +23,7 @@ import functools
 import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build, linalg
+from mujoco_sim_tpu_torch.runtime import profiler
 
 LAUNCHES = 0
 
@@ -62,7 +63,7 @@ def chol_factor_cuda(A: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"chol_factor kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
-    cuda_build.count_launch("chol_factor", dev)
+    profiler.count("chol_factor", dev)
     return L
 
 

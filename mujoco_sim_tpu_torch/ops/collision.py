@@ -39,6 +39,7 @@ from mujoco_sim_tpu_torch.ops.gjk import point_hull_closest
 from mujoco_sim_tpu_torch.ops.hull_sat import (
     _pts_vs_planes, hull_ref_face_depth, top_k_largest as _top_k_small)
 from mujoco_sim_tpu_torch.ops.math import cross, norm
+from mujoco_sim_tpu_torch.runtime import profiler
 
 
 def _rows_per(m: Model) -> int:
@@ -1240,4 +1241,5 @@ def collision(m: Model, d: Data) -> Data:
         efc_address=plan["efc_address"].to(torch.int32).expand(B, K),
     )
     ncon = act_i.sum(dim=-1).to(torch.int32)
+    profiler.count_sum("contacts", ncon)
     return d.replace(contact=con, ncon=ncon)

@@ -13,7 +13,6 @@ the first launch of any kernel pays one build wait, not one per kernel.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -24,6 +23,8 @@ import tempfile
 import time
 
 import torch
+
+from mujoco_sim_tpu_torch.runtime import profiler
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -48,70 +49,12 @@ KERNELS = {
     "support_minmax": ("support_minmax.cu", _NO_FMA),
     "face_sat": ("face_sat.cu", _NO_FMA),
     "graph_loop": ("graph_loop.cu", ()),
+    "trace_stamp": ("trace_stamp.cu", ()),
 }
 HEADERS = ("support.cuh", "chol_factor.cuh", "async_copy.cuh", "face_sat.cuh")
 
 # name -> dict(path, seconds, ptxas) of the builds this process made or found
 BUILD_INFO: dict = {}
-
-
-# Launch counts kept on the card, for the replays of a CUDA graph: kept
-# only inside a ``counting(device)`` block.  Each wrapper adds one to its
-# kernel's count (count_launch) where it launches the kernel, as it adds
-# one to its host count LAUNCHES.  Inside a capture that add is a node of
-# the graph, so every replay of a graph captured in such a block adds the
-# launches it makes (a WHILE body's once an iteration), where LAUNCHES
-# sees only the warm-up call and the capture.  Such a graph runs one small
-# kernel more a launch, so a graph that is timed is captured outside one.
-COUNTED = ("chol_solve", "chol_factor", "hull_ref_face_depth",
-           "face_sat_depth", "mtv_query", "support_minmax", "graph_loop")
-# device -> its counts, made once and never freed: a graph captured while
-# counting writes them on every replay
-_COUNTS: dict = {}
-# the devices that count now
-_ON: set = set()
-
-
-def _cuda_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"launch counts are kept on a CUDA device, not "
-                         f"{device}")
-    return torch.device("cuda", torch.cuda.current_device()
-                        if device.index is None else device.index)
-
-
-@contextlib.contextmanager
-def counting(device):
-    """Keep launch counts on ``device`` inside the block (graphs captured
-    in it count their replays' launches wherever they replay); on exit
-    the state before it is restored."""
-    device = _cuda_device(device)
-    if device not in _COUNTS:
-        _COUNTS[device] = torch.zeros(len(COUNTED), dtype=torch.int64,
-                                      device=device)
-    was = device in _ON
-    _ON.add(device)
-    try:
-        yield
-    finally:
-        if not was:
-            _ON.discard(device)
-
-
-def count_launch(name: str, device: torch.device) -> None:
-    """Add one to ``name``'s launch count on ``device`` where it counts now
-    (on the current stream, so a capture records it)."""
-    if device in _ON:
-        _COUNTS[device][COUNTED.index(name)].add_(1)
-
-
-def device_counts(device) -> dict:
-    """The launch counts kept on ``device`` so far (read back: a host
-    sync); all 0 where it never counted."""
-    counts = _COUNTS.get(_cuda_device(device))
-    return dict(zip(COUNTED, [0] * len(COUNTED) if counts is None
-                    else counts.tolist()))
 
 
 def source_path(name: str) -> str:
@@ -137,6 +80,7 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
+@profiler.spanned("cuda_build.build_all")
 def build_all() -> dict:
     """Compile every kernel that is not built yet, all nvcc processes
     running at once; fills and returns BUILD_INFO.  Raises with nvcc's

@@ -27,6 +27,7 @@ import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build
 from mujoco_sim_tpu_torch.ops.hull_sat import SMEM_BYTES, smem_fits
+from mujoco_sim_tpu_torch.runtime import profiler
 
 LAUNCHES = 0
 SOURCE = cuda_build.source_path("face_sat")
@@ -111,7 +112,7 @@ def face_sat_depth_cuda(pts, planes, vmask, K=2):
     if rc != 0:
         raise RuntimeError(f"face_sat kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
-    cuda_build.count_launch("face_sat_depth", dev)
+    profiler.count("face_sat_depth", dev)
     return depth, idx, plane, sep
 
 

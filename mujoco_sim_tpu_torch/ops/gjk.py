@@ -139,5 +139,5 @@ def point_hull_closest(q, verts, mask, enabled=None):
 
     _, _, _, p_best, d_best, _, _ = loops.while_loop(cond, body, (
         s0, s0, s0, s0, norm(q - s0), done,
-        torch.zeros(lead, dtype=torch.int32, device=q.device)))
+        torch.zeros(lead, dtype=torch.int32, device=q.device)), name="gjk")
     return d_best, p_best

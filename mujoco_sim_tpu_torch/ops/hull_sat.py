@@ -20,6 +20,7 @@ import functools
 import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build
+from mujoco_sim_tpu_torch.runtime import profiler
 
 LAUNCHES = 0
 SOURCE = cuda_build.source_path("hull_sat")
@@ -162,7 +163,7 @@ def hull_ref_face_depth_cuda(pts_local, planes, k_out, pts_mask=None,
     if rc != 0:
         raise RuntimeError(f"hull_sat kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
-    cuda_build.count_launch("hull_ref_face_depth", dev)
+    profiler.count("hull_ref_face_depth", dev)
     return depth, idx, nref, sep
 
 

@@ -27,8 +27,11 @@ the body streams, into the graph's memory pool: ``capture`` (used by
 StepGraph) does that, and ``while_loop`` refuses a capture it did not
 open.  ``LAUNCHES`` counts the predicate kernel's launches (two a node:
 one before it, one at the end of its body), and nothing else; the counts
-kept on the card (cuda_build.count_launch) add one a replay for the
-first and one an iteration for the second.
+kept on the card (profiler.count) add one a replay for the
+first and one an iteration for the second.  A loop given a ``name``
+(runtime/profiler.LOOPS) also counts, where the recorder counts, its
+iterations and the envs active in each (``profiler.count_iteration``, in
+the body: a node of the WHILE body inside a capture).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import threading
 import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build
+from mujoco_sim_tpu_torch.runtime import profiler
 
 LAUNCHES = 0
 SOURCE = cuda_build.source_path("graph_loop")
@@ -97,7 +101,7 @@ def any_cuda(mask: torch.Tensor) -> torch.Tensor:
                              mask.data_ptr(), mask.numel(), out.data_ptr()),
            "any")
     LAUNCHES += 1
-    cuda_build.count_launch("graph_loop", mask.device)
+    profiler.count("graph_loop", mask.device)
     return out
 
 
@@ -124,16 +128,17 @@ def _select(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
     return torch.where(a, new, old)
 
 
-def _iterate(cond_fn, body_fn, carry, active):
+def _iterate(cond_fn, body_fn, carry, active, name):
     """One masked iteration, in place: carry = where(active, body(carry),
-    carry); active = cond(carry)."""
+    carry); active = cond(carry).  Counted as loop ``name``'s (if any)."""
+    profiler.count_iteration(name, active)
     new = body_fn(carry)
     for c, n in zip(carry, new):
         c.copy_(_select(active, n, c))
     active.copy_(cond_fn(carry))
 
 
-def while_loop(cond_fn, body_fn, carry):
+def while_loop(cond_fn, body_fn, carry, name: str | None = None):
     """``jax.vmap(lambda c: lax.while_loop(cond_fn, body_fn, c))`` on a
     batched carry.
 
@@ -141,18 +146,20 @@ def while_loop(cond_fn, body_fn, carry):
     carry tensor starts with the shape of cond_fn's mask).  cond_fn(carry)
     -> bool mask over the env axes; body_fn(carry) -> the new carry (same
     shapes and dtypes).  Returns the final carry, a tuple of tensors the
-    loop owns (the caller's tensors are not written)."""
+    loop owns (the caller's tensors are not written).  ``name``: the
+    loop's name among runtime/profiler.LOOPS, under which the recorder
+    counts its iterations."""
     carry = tuple(c.clone() for c in carry)
     active = cond_fn(carry).clone()
     if active.is_cuda and torch.cuda.is_current_stream_capturing():
-        _while_node(cond_fn, body_fn, carry, active)
+        _while_node(cond_fn, body_fn, carry, active, name)
     else:
         while bool(active.any()):
-            _iterate(cond_fn, body_fn, carry, active)
+            _iterate(cond_fn, body_fn, carry, active, name)
     return carry
 
 
-def _while_node(cond_fn, body_fn, carry, active):
+def _while_node(cond_fn, body_fn, carry, active, name):
     global LAUNCHES
     if not getattr(_STATE, "routed", False):
         raise RuntimeError(
@@ -171,14 +178,14 @@ def _while_node(cond_fn, body_fn, carry, active):
                                 parent.cuda_stream, body.cuda_stream,
                                 ctypes.byref(handle)), "begin")
     LAUNCHES += 1
-    # counted after the node: once a replay (cuda_build.count_launch)
-    cuda_build.count_launch("graph_loop", dev)
+    # counted after the node: once a replay (profiler.count)
+    profiler.count("graph_loop", dev)
     _STATE.depth = depth + 1
     try:
         with torch.cuda.stream(body):
-            _iterate(cond_fn, body_fn, carry, active)
+            _iterate(cond_fn, body_fn, carry, active, name)
             # in the body: once an iteration
-            cuda_build.count_launch("graph_loop", dev)
+            profiler.count("graph_loop", dev)
         _check(lib.graph_loop_end(active.data_ptr(), active.numel(),
                                   handle.value, body.cuda_stream), "end")
         LAUNCHES += 1

@@ -37,6 +37,7 @@ import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build
 from mujoco_sim_tpu_torch.ops.support_minmax import support_minmax_plain
+from mujoco_sim_tpu_torch.runtime import profiler
 
 LAUNCHES = 0
 SOURCE = cuda_build.source_path("mtv_query")
@@ -223,7 +224,7 @@ def mtv_query_cuda(wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB,
     if rc != 0:
         raise RuntimeError(f"mtv_query kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
-    cuda_build.count_launch("mtv_query", dev)
+    profiler.count("mtv_query", dev)
     return depth, n
 
 

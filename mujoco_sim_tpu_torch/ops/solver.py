@@ -301,7 +301,7 @@ def solve(m: Model, d: Data) -> Data:
         alpha, _, _ = loops.while_loop(ls_cond, ls_body, (
             torch.ones_like(pMp),
             torch.zeros(pMp.shape, dtype=torch.int32, device=pMp.device),
-            torch.full_like(pMp, 1e30)))
+            torch.full_like(pMp, 1e30)), name="linesearch")
         alpha = torch.where(torch.isfinite(alpha), alpha, 0.0)
         alpha = torch.clamp(alpha, 0.0, 8.0)
         return alpha, Jp, phi_cost(alpha), phi_cost(torch.full_like(pMp, 0.5))
@@ -354,7 +354,8 @@ def solve(m: Model, d: Data) -> Data:
     a, x, cost, _, _ = loops.while_loop(newton_cond, newton_step, (
         a, x, cost,
         torch.zeros(cost.shape, dtype=torch.bool, device=cost.device),
-        torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)))
+        torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)),
+        name="newton")
 
     efc_force, qfrc_constraint = constraint_force_from_qacc(m, d, a, jar=x)
     return d.replace(qacc=a, qfrc_constraint=qfrc_constraint,
@@ -397,7 +398,8 @@ def _bracket_search(phi_d, phi_cost, c1, pMp, curv_floor, live):
 
     _, _, alpha, _, _ = loops.while_loop(cond, body, (
         lo, hi, alpha, torch.full_like(pMp, 1e30),
-        torch.zeros(pMp.shape, dtype=torch.int32, device=pMp.device)))
+        torch.zeros(pMp.shape, dtype=torch.int32, device=pMp.device)),
+        name="bracket")
     alpha = torch.where(torch.isfinite(alpha), alpha, 0.0)
     alpha = torch.clamp(alpha, 0.0, 256.0)
     return alpha, phi_cost(alpha), phi_cost(torch.full_like(pMp, 0.5))

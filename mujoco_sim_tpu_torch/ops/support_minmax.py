@@ -22,6 +22,7 @@ import functools
 import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build
+from mujoco_sim_tpu_torch.runtime import profiler
 
 LAUNCHES = 0
 SOURCE = cuda_build.source_path("support_minmax")
@@ -73,7 +74,7 @@ def support_minmax_cuda(axes: torch.Tensor, w: torch.Tensor):
         raise RuntimeError(f"support_minmax kernel launch failed: "
                            f"cudaError {rc}")
     LAUNCHES += 1
-    cuda_build.count_launch("support_minmax", dev)
+    profiler.count("support_minmax", dev)
     return mn, mx
 
 

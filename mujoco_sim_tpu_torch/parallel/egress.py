@@ -17,13 +17,12 @@ only them, shard by shard into the env columns they hold.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from mujoco_sim_tpu_torch.models.model import Model, Data
 from mujoco_sim_tpu_torch.parallel import mesh as pmesh
+from mujoco_sim_tpu_torch.runtime import profiler
 
 
 class _Egress:
@@ -93,9 +92,9 @@ def rollout_collect(m: Model, dB: Data, nsteps: int, chunk: int = 64,
     a numpy array, or a tuple/list/dict of them, stacked over steps, with
     this process's envs in env order).  jit_cache, when given, keeps the
     shards' step graphs, the copy streams and the pinned buffers for the
-    next call, and under "read_s" the host seconds each chunk's read-out
-    took in this call (the wait on its copies and the copy out of the
-    pinned buffers)."""
+    next call.  While tracing (runtime/profiler), each chunk's read-out
+    (the wait on its copies and the copy out of the pinned buffers) is a
+    span ``egress.read``."""
     extract = extract or pmesh._qpos
     nchunks, rem = divmod(nsteps, chunk)
     if rem:
@@ -113,13 +112,11 @@ def rollout_collect(m: Model, dB: Data, nsteps: int, chunk: int = 64,
             cache[key] = pmesh.traj_graph(extract)
         graphs.append(cache[key])
     out, rebuild, cols = None, None, []
-    reads = cache["read_s"] = []
 
     def read(k):
-        t = time.perf_counter()
-        for e, c in zip(egress, cols):
-            e.finish(k, out, slice(k * chunk, (k + 1) * chunk), c)
-        reads.append(time.perf_counter() - t)
+        with profiler.span("egress.read"):
+            for e, c in zip(egress, cols):
+                e.finish(k, out, slice(k * chunk, (k + 1) * chunk), c)
 
     for k in range(nchunks):
         for i, (dev, mi) in enumerate(zip(devs, models)):

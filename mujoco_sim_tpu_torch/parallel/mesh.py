@@ -36,6 +36,7 @@ from mujoco_sim_tpu_torch.models.model import Model, Data
 from mujoco_sim_tpu_torch.parallel.rollout import (  # noqa: F401
     _carry, batched_step, rollout,
 )
+from mujoco_sim_tpu_torch.runtime import profiler
 from mujoco_sim_tpu_torch.utils import graph
 from mujoco_sim_tpu_torch.utils.struct import map_leaves
 
@@ -237,7 +238,8 @@ def scan_reduced(step_fn, init, nsteps: int):
         return init
     g = graph.cached("scan", step_fn,
                      lambda: graph.StepGraph(lambda _, c: step_fn(c)))
-    return g.run(None, init, n=nsteps)
+    with profiler.span("mesh.scan_reduced", init):
+        return g.run(None, init, n=nsteps)
 
 
 def _check(dS: Sharded, mesh: EnvMesh):

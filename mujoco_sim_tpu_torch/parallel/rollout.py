@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.model import Model, Data
+from mujoco_sim_tpu_torch.runtime import profiler
 from mujoco_sim_tpu_torch.utils import graph
 
 # Data leaves that step() reads before writing them: the state proper and
@@ -53,7 +54,8 @@ def step_graph(ctrl_fn=None) -> graph.StepGraph:
 
 def batched_step(m: Model, dB: Data) -> Data:
     """One batched step through the step's graph."""
-    return step_graph()(m, dB)
+    with profiler.span("rollout.batched_step", dB):
+        return step_graph()(m, dB)
 
 
 def rollout(m: Model, dB: Data, nsteps: int, full_final: bool = True,
@@ -71,7 +73,8 @@ def rollout(m: Model, dB: Data, nsteps: int, full_final: bool = True,
     """
     if nsteps <= 0:
         return dB
-    d = step_graph(ctrl_fn).run(m, dB, n=nsteps)
+    with profiler.span("rollout.rollout", dB):
+        d = step_graph(ctrl_fn).run(m, dB, n=nsteps)
     return d if full_final else dB.replace(**_carry(d))
 
 

@@ -33,8 +33,16 @@ rollout's step with its ``ctrl_fn``) once as a CUDA graph and replays it:
 * a model is read by the addresses of its tensors, so a capture is keyed
   on the model object (and the inputs' shapes, dtypes and devices): a new
   model (``SimLoop._set_dt``'s new timestep, a hot swap) gets a capture of
-  its own and never reads a stale one.  The last ``keep`` captures are
-  kept.
+  its own and never reads a stale one.  It is also keyed on what the
+  recorder (runtime/profiler) records on the inputs' device, since a
+  capture made while it counts or traces holds its count and stamp
+  nodes and one made while it is off holds none.  The last ``keep``
+  captures are kept;
+* spans (runtime/profiler, while tracing): ``graph.load`` (the copy-in,
+  with its ``bytes``), ``graph.replay`` (one a replay: the graph launch)
+  and ``graph.result`` (the clones, with their ``bytes``); and, whether
+  or not tracing is on, ``graph.capture`` (its children ``warm`` and
+  ``capture``, with the ``pool_bytes`` the capture's pool reserved).
 
 On a CPU model the same static-buffer code runs with no capture, so the
 CPU tests exercise everything but the graph itself.  On a CUDA model a
@@ -45,12 +53,12 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 import weakref
 
 import torch
 
 from mujoco_sim_tpu_torch.ops import loops
+from mujoco_sim_tpu_torch.runtime import profiler
 from mujoco_sim_tpu_torch.utils.struct import leaf_names
 
 _ALL = weakref.WeakSet()
@@ -137,40 +145,43 @@ class _Capture:
         dev = self.static[0].device
         self.device = dev
         self.graph = None
-        self.pool_mb = 0.0
-        self.capture_s = 0.0
         if rows:
             self.row = torch.zeros(1, dtype=torch.long, device=dev)
         if dev.type != "cuda":
             return
-        t0 = time.perf_counter()
-        self._warm_and_capture(dev)
-        self.capture_s = time.perf_counter() - t0
+        with profiler.span("graph.capture", always=True) as sp:
+            self._warm_and_capture(dev, sp)
 
-    def _warm_and_capture(self, dev):
-        """The warm-up call, then the capture, on a CUDA device."""
+    def _warm_and_capture(self, dev, sp=None):
+        """The warm-up call, then the capture, on a CUDA device; ``sp``
+        the capture's span, given the pool's bytes."""
         with torch.cuda.device(dev):
-            warm = self.g.fn(self.m, *self.xs)   # warm-up: builds, caches
-            if self.rows:
-                # the trajectory buffers outlive a replay, so they are made
-                # outside the capture: a block the capture hands out may be
-                # one it freed earlier in the step, which the next replay
-                # writes again
-                self._make_bufs(warm)
-            del warm
-            torch.cuda.synchronize(dev)
-            # the warm-up's freed blocks go back to the card: the capture's
-            # private pool cannot reuse them, so, kept in the cache, they
-            # would double the step's footprint (manip_bin6 at 65 536 envs:
-            # ~30 GB more, 76.8 of the card's 80 GB reserved)
-            torch.cuda.empty_cache()
+            with profiler.span("warm", always=True):
+                warm = self.g.fn(self.m, *self.xs)   # builds, caches
+                if self.rows:
+                    # the trajectory buffers outlive a replay, so they are
+                    # made outside the capture: a block the capture hands
+                    # out may be one it freed earlier in the step, which
+                    # the next replay writes again
+                    self._make_bufs(warm)
+                del warm
+                torch.cuda.synchronize(dev)
+                # the warm-up's freed blocks go back to the card: the
+                # capture's private pool cannot reuse them, so, kept in the
+                # cache, they would double the step's footprint (manip_bin6
+                # at 65 536 envs: ~30 GB more, 76.8 of the card's 80 GB
+                # reserved)
+                torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
-            self.graph = torch.cuda.CUDAGraph()
-            with loops.capture(self.graph, dev):
-                self.out = self._body()
-            self.out_flat = _flatten(self.out)
-            torch.cuda.synchronize(dev)
-            self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+            with profiler.span("capture", always=True):
+                self.graph = torch.cuda.CUDAGraph()
+                with loops.capture(self.graph, dev):
+                    self.out = self._body()
+                self.out_flat = _flatten(self.out)
+                torch.cuda.synchronize(dev)
+            if sp is not None:
+                sp.attrs["pool_bytes"] = (torch.cuda.memory_reserved(dev)
+                                          - reserved)
 
     def _body(self):
         """fn on the static inputs, its results copied back into them, and
@@ -197,34 +208,49 @@ class _Capture:
                      for _, x in rl]
 
     def load(self, xs):
-        leaves, _ = _flatten(xs)
-        for i in self.inputs:
-            src = leaves[i][1]
-            if src is not self.static[i]:
-                self.static[i].copy_(src)
+        with profiler.span("graph.load") as sp:
+            leaves, _ = _flatten(xs)
+            copied = [i for i in self.inputs
+                      if leaves[i][1] is not self.static[i]]
+            for i in copied:
+                self.static[i].copy_(leaves[i][1])
+            if sp is not None:
+                sp.attrs["bytes"] = sum(leaves[i][1].nbytes for i in copied)
 
     def replay(self):
-        if self.graph is not None:
-            self.graph.replay()
-        else:
-            self.out = self._body()
-            self.out_flat = _flatten(self.out)
+        with profiler.span("graph.replay"):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self.out = self._body()
+                self.out_flat = _flatten(self.out)
         self.g.replays += 1
 
     def result(self, xs):
         """fn's result: a tensor the graph wrote is cloned (once, if it
         appears twice); an input buffer stands for the caller's tensor."""
-        caller = [t for _, t in _flatten(xs)[0]]
-        leaves, rebuild = self.out_flat
-        made = {}
-        new = []
-        for _, o in leaves:
-            k = id(o)
-            if k not in made:
-                i = self.index.get(k)
-                made[k] = caller[i] if i is not None else o.clone()
-            new.append(made[k])
-        return rebuild(iter(new))
+        with profiler.span("graph.result") as sp:
+            caller = [t for _, t in _flatten(xs)[0]]
+            leaves, rebuild = self.out_flat
+            made = {}
+            new = []
+            for _, o in leaves:
+                k = id(o)
+                if k not in made:
+                    i = self.index.get(k)
+                    made[k] = caller[i] if i is not None else o.clone()
+                new.append(made[k])
+            if sp is not None:
+                sp.attrs["bytes"] = sum(t.nbytes for k, t in made.items()
+                                        if k not in self.index)
+            return rebuild(iter(new))
+
+    def records(self):
+        """The trajectory buffers' record of the run, cloned."""
+        with profiler.span("graph.result") as sp:
+            if sp is not None:
+                sp.attrs["bytes"] = sum(b.nbytes for b in self.bufs)
+            return self.rec_rebuild(iter([b.clone() for b in self.bufs]))
 
 
 class StepGraph:
@@ -249,12 +275,13 @@ class StepGraph:
 
     @property
     def last(self) -> _Capture | None:
-        """The capture used last (its ``pool_mb``, ``capture_s``)."""
+        """The capture used last."""
         return next(reversed(self._caps.values()), None)
 
     def _capture(self, m, xs: tuple, rows: int) -> _Capture:
         leaves, _ = _flatten(xs)
-        key = (id(m), rows, tuple(type(x) for x in xs),
+        key = (id(m), rows, profiler.mode(leaves[0][1].device),
+               tuple(type(x) for x in xs),
                tuple((p, tuple(t.shape), t.dtype, t.device)
                      for p, t in leaves))
         cap = self._caps.get(key)
@@ -291,4 +318,4 @@ class StepGraph:
         out = cap.result(xs)
         if not self.record:
             return out
-        return out, cap.rec_rebuild(iter([b.clone() for b in cap.bufs]))
+        return out, cap.records()

@@ -15,6 +15,7 @@ import mujoco_sim_tpu_torch as mst
 from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat, hull_sat,
                                       manifold, mtv_query, support_minmax)
 from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
+from mujoco_sim_tpu_torch.runtime import profiler
 from mujoco_sim_tpu_torch.utils import kernel_cases
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
@@ -772,13 +773,16 @@ def test_rollout_collect_on_card_equals_rollout_traj(cuda_device):
     dS = pmesh.shard_batch(d, mesh)
     own = [pmesh.rollout_traj(m, s, 48) for s in dS.shards]
     for _ in range(2):
-        got_final, got = egress.rollout_collect(mR, dS, 48, chunk=16,
-                                                jit_cache=cache)
+        profiler.clear_spans()
+        with profiler.tracing():
+            got_final, got = egress.rollout_collect(mR, dS, 48, chunk=16,
+                                                    jit_cache=cache)
         np.testing.assert_array_equal(
             got, torch.cat([t for _, t in own], 1).cpu().numpy())
         for (f, _), g in zip(own, got_final.shards):
             assert torch.equal(g.qpos, f.qpos)
-    assert len(cache["read_s"]) == 3
+    assert len([s for s in profiler.spans() if s.name == "egress.read"]) == 3
+    profiler.clear_spans()
 
 
 # ----------------------------------------------------- the compiled step
@@ -818,13 +822,12 @@ def test_step_graph_matches_eager_on_card(scene, nenv, cuda_device):
 
 @pytest.mark.cuda
 def test_replay_launches_counted_on_card(cuda_device):
-    """ops/cuda_build.counting: the replays of a manip step captured
+    """runtime/profiler.counting: the replays of a manip step captured
     while counts are kept add the hand-written kernels' launches on the
     card (a WHILE body's once an iteration): as many as the eager steps
     from the same state make, by the wrappers' LAUNCHES and on the card;
     the WHILE predicate runs in the replays only.  Outside the block
     nothing counts, and a graph captured there adds nothing."""
-    from mujoco_sim_tpu_torch.ops import cuda_build
     from mujoco_sim_tpu_torch.parallel.rollout import step_graph
     from mujoco_sim_tpu_torch.utils import graph
     m = mst.put_model(mst.load_model(str(FIXTURES / "manip_bin6.xml")))
@@ -832,28 +835,28 @@ def test_replay_launches_counted_on_card(cuda_device):
     try:
         graph.clear_all()
         d = mst.rollout(m, mst.make_data(m, 32), 3, ctrl_fn=ctrl_fn)
-        c_off = cuda_build.device_counts(cuda_device)
+        c_off = profiler.counts(cuda_device)
         mst.rollout(m, d, 2, ctrl_fn=ctrl_fn)
-        assert cuda_build.device_counts(cuda_device) == c_off
+        assert profiler.counts(cuda_device) == c_off
         graph.clear_all()
-        with cuda_build.counting(cuda_device):
+        with profiler.counting(cuda_device):
             mst.rollout(m, d, 1, ctrl_fn=ctrl_fn)      # the capture
             g = step_graph(ctrl_fn)
-            c0 = cuda_build.device_counts(cuda_device)
+            c0 = profiler.counts(cuda_device)
             g.run(m, d, n=4)
-            c1 = cuda_build.device_counts(cuda_device)
+            c1 = profiler.counts(cuda_device)
             mods = dict(chol_solve=chol, hull_ref_face_depth=hull_sat,
                         mtv_query=mtv_query)
             before = {k: mod.LAUNCHES for k, mod in mods.items()}
             rollout_eager(m, d, 4, ctrl_fn=ctrl_fn)
-            c2 = cuda_build.device_counts(cuda_device)
+            c2 = profiler.counts(cuda_device)
         for k, mod in mods.items():
             assert (c1[k] - c0[k] == mod.LAUNCHES - before[k]
                     == c2[k] - c1[k] > 0), k
         assert c1["graph_loop"] > c0["graph_loop"]
         assert c2["graph_loop"] == c1["graph_loop"]
         rollout_eager(m, d, 2, ctrl_fn=ctrl_fn)
-        assert cuda_build.device_counts(cuda_device) == c2
+        assert profiler.counts(cuda_device) == c2
     finally:
         graph.clear_all()
 

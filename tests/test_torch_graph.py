@@ -389,43 +389,49 @@ def test_replay_counts_read_demangled_kernel_names():
 
 
 def test_launch_counts_on_the_card_only():
-    """ops/cuda_build's launch counts for a graph's replays live on a CUDA
-    device; a CPU device is refused, and a launch where no counts are kept
-    adds nothing (the twins on the CPU launch nothing at all)."""
-    from mujoco_sim_tpu_torch.ops import cuda_build
-    with pytest.raises(ValueError):
-        with cuda_build.counting("cpu"):
-            pass
-    cuda_build.count_launch("chol_solve", torch.device("cuda", 0))
-    assert not cuda_build._ON
-    assert set(cuda_build.COUNTED) == set(_chip_smoke().REPLAY_KERNELS)
+    """The hand-written kernels' launch counts for a graph's replays are
+    added on a CUDA device only: a CPU device keeps the recorder's table (its steps
+    count), but the twins on the CPU launch nothing, so its launch counts
+    stay 0; and a launch where no counts are kept adds nothing."""
+    from mujoco_sim_tpu_torch.runtime import profiler
+    m, d = _scene("floor_box.xml")
+    before = profiler.counts("cpu")
+    with profiler.counting("cpu"):
+        engine.step(m, d)
+    got = profiler.counts("cpu")
+    assert {k: got[k] for k in profiler.LAUNCH_COUNTS} == dict.fromkeys(
+        profiler.LAUNCH_COUNTS, 0)
+    assert profiler.counts("cpu")["step.count"] == before["step.count"] + 1
+    profiler.count("chol_solve", torch.device("cuda", 0))
+    assert not profiler._MODE
+    assert set(profiler.LAUNCH_COUNTS) == set(_chip_smoke().REPLAY_KERNELS)
 
 
 def test_counting_is_kept_inside_its_block_only(monkeypatch):
-    """cuda_build.counting(device): launches count inside the block, on
+    """profiler.counting(device): launches count inside the block, on
     the device's one count tensor, and stop counting when the block ends,
     by an exception too; a nested block leaves the outer one counting.  A
     CPU tensor stands in for the card's counts (no card here)."""
-    from mujoco_sim_tpu_torch.ops import cuda_build
+    from mujoco_sim_tpu_torch.runtime import profiler
     dev = torch.device("cuda", 0)
-    counts = torch.zeros(len(cuda_build.COUNTED), dtype=torch.int64)
-    monkeypatch.setitem(cuda_build._COUNTS, dev, counts)
-    i = cuda_build.COUNTED.index("mtv_query")
-    with cuda_build.counting(dev):
-        cuda_build.count_launch("mtv_query", dev)
-        with cuda_build.counting("cuda:0"):
-            cuda_build.count_launch("mtv_query", dev)
-        cuda_build.count_launch("mtv_query", dev)
-    cuda_build.count_launch("mtv_query", dev)
+    counts = torch.zeros(len(profiler.SLOTS), dtype=torch.int64)
+    monkeypatch.setitem(profiler._TABLES, dev, counts)
+    i = profiler.SLOTS.index("mtv_query")
+    with profiler.counting(dev):
+        profiler.count("mtv_query", dev)
+        with profiler.counting("cuda:0"):
+            profiler.count("mtv_query", dev)
+        profiler.count("mtv_query", dev)
+    profiler.count("mtv_query", dev)
     assert int(counts[i]) == 3 and int(counts.sum()) == 3
     with pytest.raises(RuntimeError):
-        with cuda_build.counting(dev):
+        with profiler.counting(dev):
             raise RuntimeError("a failed capture")
-    assert not cuda_build._ON
-    cuda_build.count_launch("mtv_query", dev)
+    assert not profiler._MODE
+    profiler.count("mtv_query", dev)
     assert int(counts[i]) == 3
-    assert cuda_build.device_counts(dev)["mtv_query"] == 3
-    assert cuda_build._COUNTS[dev] is counts
+    assert profiler.counts(dev)["mtv_query"] == 3
+    assert profiler._TABLES[dev] is counts
 
 
 def test_capture_gives_the_warmups_blocks_back_first(monkeypatch):

@@ -17,6 +17,7 @@ from mujoco_sim_tpu.parallel import mesh as jmesh
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.parallel import egress, mesh as pmesh
+from mujoco_sim_tpu_torch.runtime import profiler as tprof
 from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
@@ -134,9 +135,13 @@ def test_rollout_collect_equals_rollout_traj_bit_for_bit(box):
     _, _, mt, dt = box
     final, traj = pmesh.rollout_traj(mt, dt, 32)
     cache = {}
-    got_final, got = egress.rollout_collect(mt, dt, 32, chunk=8,
-                                            jit_cache=cache)
-    assert isinstance(got, np.ndarray) and len(cache["read_s"]) == 4
+    tprof.clear_spans()
+    with tprof.tracing():
+        got_final, got = egress.rollout_collect(mt, dt, 32, chunk=8,
+                                                jit_cache=cache)
+    reads = [s for s in tprof.spans() if s.name == "egress.read"]
+    tprof.clear_spans()
+    assert isinstance(got, np.ndarray) and len(reads) == 4
     np.testing.assert_array_equal(got, traj.numpy())
     assert torch.equal(got_final.qpos, final.qpos)
     # a sharded batch egresses its shards into their env columns, and a

@@ -416,16 +416,20 @@ def test_simloop_paces_to_the_wall_clock(seq):
 
 def test_profiler_on_the_cpu(seq, tmp_path):
     tm, td = seq["spawned"]["tm"], seq["spawned"]["td"]
-    prof = tprof.Profiler()
-    d = td
-    with prof.step_block(n=3, dt=0.002):
-        for _ in range(3):
-            d = teng.step(tm, d)
-    with prof.stage("extra"):
-        pass
-    rep = prof.report()
-    assert rep["steps"] == 3 and rep["steps_per_sec"] > 0
-    assert "extra" in rep["stages"]
+    tprof.clear_spans()
+    with tprof.tracing("cpu"):
+        tprof.reset("cpu")
+        d = td
+        with tprof.span("steps"):
+            for _ in range(3):
+                d = teng.step(tm, d)
+        with tprof.span("extra"):
+            pass
+    got = {s.name: s for s in tprof.spans()}
+    tprof.clear_spans()
+    assert tprof.counts("cpu")["step.count"] == 3
+    assert len(tprof.ring("cpu")) == 3
+    assert got["steps"].end_ns > got["steps"].start_ns and "extra" in got
     t = tprof.stage_timings(tm, td, repeats=1)
     assert set(t) == {"fwd_position", "fwd_velocity", "fwd_acceleration",
                       "solver", "full_step"}
