@@ -239,15 +239,15 @@ def _ptxas(text):
 def build():
     from mujoco_sim_tpu_torch.ops import (chol, chol_factor, cuda_build,
                                           face_sat, hull_sat, loops,
-                                          mtv_query, support_minmax,
-                                          trace_stamp)
+                                          manifold, mtv_query,
+                                          support_minmax, trace_stamp)
     t0 = time.perf_counter()
     info = cuda_build.build_all()
     for mod in (chol, chol_factor, hull_sat, mtv_query, support_minmax,
-                face_sat, loops, trace_stamp):
+                face_sat, loops, trace_stamp, manifold):
         mod._load()
-    if len(info) != 8:
-        raise AssertionError(f"expected eight kernels, built {sorted(info)}")
+    if len(info) != 9:
+        raise AssertionError(f"expected nine kernels, built {sorted(info)}")
     phase("build", wall_seconds=time.perf_counter() - t0,
           cuda_driver=loops.driver_version(), kernels={
         name: dict(source=os.path.relpath(cuda_build.source_path(name), ROOT),
@@ -1051,24 +1051,25 @@ def _settled(d, half_lo, z_hi, speed):
 
 def _reset_counts():
     from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
-                                          hull_sat, mtv_query, support_minmax,
-                                          trace_stamp)
+                                          hull_sat, manifold, mtv_query,
+                                          support_minmax, trace_stamp)
     for mod in (chol, chol_factor, face_sat, hull_sat, mtv_query,
-                support_minmax, trace_stamp):
+                support_minmax, trace_stamp, manifold):
         mod.LAUNCHES = 0
 
 
 def _counts():
     from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
-                                          hull_sat, mtv_query, support_minmax,
-                                          trace_stamp)
+                                          hull_sat, manifold, mtv_query,
+                                          support_minmax, trace_stamp)
     return dict(chol_solve=chol.LAUNCHES,
                 chol_factor=chol_factor.LAUNCHES,
                 face_sat_depth=face_sat.LAUNCHES,
                 hull_ref_face_depth=hull_sat.LAUNCHES,
                 mtv_query=mtv_query.LAUNCHES,
                 support_minmax=support_minmax.LAUNCHES,
-                trace_stamp=trace_stamp.LAUNCHES)
+                trace_stamp=trace_stamp.LAUNCHES,
+                feature_clip=manifold.LAUNCHES)
 
 
 def _span_s(sp):
@@ -1135,6 +1136,7 @@ REPLAY_KERNELS = {
     "support_minmax": ("support_minmax_kernel",),
     "graph_loop": ("set_any",),
     "trace_stamp": ("trace_stamp_kernel",),
+    "feature_clip": ("feature_clip_kernel",),
 }
 _KERNEL_OF = {g: k for k, gs in REPLAY_KERNELS.items() for g in gs}
 _KERNEL_NAME = re.compile(r"(?<!\w)(" + "|".join(_KERNEL_OF) + r")(?!\w)")
@@ -1677,13 +1679,14 @@ class _Probe:
     attributes the step looks up at call time.  They call the real
     functions, add no host round trip, and are taken off again: how many
     deep-pair slots were enabled, the largest ncon, and copies of the
-    kernels' inputs (the SPD solves, the face SAT, the exact query) at a
-    few steps.  With ``rows`` (env indices) only those envs' inputs are
-    copied, beside the same envs' rows of what the launch on the whole
-    batch returned (``*_out``), the whole batch's shapes (``*_full``)
-    and, for the exact query, the live lanes of each of its rounds over
-    the whole batch: a batch too large to copy is held to the twins on
-    its first and last envs."""
+    kernels' inputs (the SPD solves, the face SAT, the exact query, the
+    feature clip) at a few steps. With ``rows`` (env indices) only those
+    envs' inputs are copied, beside the same envs' rows of what the launch
+    on the whole batch returned (``*_out``), the whole batch's shapes
+    (``*_full``) and, for the exact query, the live lanes of each of its
+    rounds over the whole batch: a batch too large to copy is held to the
+    twins on its first and last envs.
+    """
 
     def __init__(self, capture_calls=(), rows=None):
         from mujoco_sim_tpu_torch.ops import (chol, collision, hull_sat,
@@ -1694,8 +1697,9 @@ class _Probe:
         self.capture_calls = set(capture_calls)
         self.rows = rows
         self.calls = 0
-        self.sat, self.mtv, self.chol = [], [], []
+        self.sat, self.mtv, self.chol, self.clip = [], [], [], []
         self.sat_out, self.mtv_out, self.chol_out = [], [], []
+        self.clip_out = []
         self.sat_full, self.mtv_full = [], []
 
     def _take(self, x, nenv, rows=None):
@@ -1714,8 +1718,8 @@ class _Probe:
         chol, collision, hull_sat, manifold, mtv_query = self.mods
         self.saved = (chol.chol_solve, collision.collision,
                       hull_sat.hull_ref_face_depth_cuda,
-                      manifold.exact_pair_contacts)
-        real_chol, real_col, real_sat, real_epc = self.saved
+                      manifold.exact_pair_contacts, manifold.feature_clip)
+        real_chol, real_col, real_sat, real_epc, real_clip = self.saved
         some = self.rows is not None
 
         def solve(A, b):
@@ -1774,17 +1778,33 @@ class _Probe:
                 kw["mtv"] = grab
             return real_epc(*args, **kw)
 
+        def clip(*a):
+            out = real_clip(*a)
+            if self.calls in self.capture_calls:
+                en, n = a[-1], a[0].shape[0]
+                rows = None
+                if some:
+                    live = en.any(-1).nonzero()[:, 0]
+                    rows = torch.cat([self.rows, live[:len(self.rows)]]
+                                     ).unique()
+                self.clip.append(dict(zip(manifold.CLIP_ARGS, (
+                    self._take(x, n, rows) for x in a))))
+                if some:
+                    self.clip_out.append(self._outs(out, n, rows))
+            return out
+
         chol.chol_solve = solve
         collision.collision = col
         hull_sat.hull_ref_face_depth_cuda = sat
         manifold.exact_pair_contacts = epc
+        manifold.feature_clip = clip
         return self
 
     def __exit__(self, *exc):
         chol, collision, hull_sat, manifold, _ = self.mods
         (chol.chol_solve, collision.collision,
          hull_sat.hull_ref_face_depth_cuda,
-         manifold.exact_pair_contacts) = self.saved
+         manifold.exact_pair_contacts, manifold.feature_clip) = self.saved
 
 
 def _objects_in_bin(d):
@@ -1803,6 +1823,11 @@ def _manip_checks(m, d, probe, counts, nsteps, what):
     for k in ("chol_solve", "hull_ref_face_depth", "mtv_query"):
         if counts[k] == 0:
             raise AssertionError(f"manip {what}: {k} was never launched")
+    if counts["feature_clip"] != counts["mtv_query"]:
+        raise AssertionError(f"manip {what}: feature_clip ran "
+                             f"{counts['feature_clip']} times, the exact "
+                             f"query {counts['mtv_query']} (one clip a "
+                             "query)")
     if counts["chol_factor"] != (nsteps if m.opt.noslip_iterations else 0):
         raise AssertionError(
             f"manip {what}: chol_factor ran {counts['chol_factor']} times in "
@@ -1839,7 +1864,8 @@ def manip_main_path(card):
     ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "main path")
     enabled = int(probe.enabled)
     graph_vs_eager("manip", m, d0, nsteps, d, card, ctrl_fn=stir,
-                   need=("chol_solve", "graph_loop", "hull_ref_face_depth", "mtv_query"))
+                   need=("chol_solve", "graph_loop", "hull_ref_face_depth",
+                         "mtv_query", "feature_clip"))
     times = _timed_rollouts(
         lambda: mst.rollout(m, d0, nsteps, ctrl_fn=stir), 1)
     phase("manip_main_path", scene="manip_bin6.xml", nenv=MANIP_NENV,
@@ -1869,6 +1895,7 @@ def manip_main_path(card):
         phase("manip_exact_meshcollide", steps=50, launches=cx,
               deep_slots_enabled=int(probe_x.enabled))
         probe.mtv += probe_x.mtv
+        probe.clip += probe_x.clip
     return m, counts, probe
 
 
@@ -1940,6 +1967,17 @@ def manip_kernels(probe):
         plain_ms=_median_ms(lambda: mtv_query.mtv_query_plain(*args)),
         staged_ms=_median_ms(lambda: manifold.mtv_staged(*args)),
         bound_ms=bound, bound_by=by)
+    # the feature clip at every capture, timed at the one with the most
+    # live lanes
+    if not probe.clip:
+        raise AssertionError("the manip rollout gave no feature-clip input")
+    clip_held = _clip_summary([compare_clip(c, "manip capture")
+                               for c in probe.clip])
+    if clip_held["live"] == 0:
+        raise AssertionError("the manip captures hold no live clip lane")
+    timing["feature_clip"] = _clip_record(
+        max(probe.clip, key=lambda c: int(c["enabled"].sum())),
+        "manip capture")
     # support_minmax at the staged query's two widths on the same verts
     rng = np.random.default_rng(5)
     for C in (2 * F, K * K):
@@ -1967,6 +2005,7 @@ def manip_kernels(probe):
     timing["support_minmax_launches_per_staged_query"] = staged_launches
     phase("manip_kernels", captured_sat_calls=len(probe.sat),
           captured_mtv_calls=len(probe.mtv), live_deep_slots_checked=live,
+          feature_clip_vs_twin=clip_held,
           max_abs_err=err, accepted_near_ties=ties, timing=timing,
           peaks="3.35 TB/s, 67 TFLOP/s f32")
     return err, timing
@@ -2059,6 +2098,123 @@ def _mtv_lanes_in_round(args):
     return lanes
 
 
+# the feature clip's points against its twin's on the CPU, over the
+# larger bounding radius of the pair: CLIP_TIE_TOL everywhere (the 1e-4 rb
+# within which the clip merges points), CLIP_NEAR_TOL but on the lanes
+# where corners that tie in exact arithmetic are picked in another order,
+# at most CLIP_TIE_SHARE of the live lanes or one
+# (tests/test_torch_feature_clip.py)
+CLIP_TIE_TOL = 1e-4
+CLIP_NEAR_TOL = 4e-7
+CLIP_TIE_SHARE = 0.15
+
+
+def compare_clip(b, what, got=None):
+    """The feature-clip kernel against its twin on the CPU on captured
+    inputs ``b`` (by name, manifold.CLIP_ARGS; ``got``: the kernel's rows
+    of a launch on a larger batch, else it is launched here): ok, the
+    active rows, the certificate's sign and the normal equal on every
+    lane, the miss tuple bit for bit on every lane not enabled, the active
+    rows' distances equal and their points equal as a set (to CLIP_TIE_TOL
+    rb; beyond CLIP_NEAR_TOL on at most CLIP_TIE_SHARE of the live lanes).
+    The twin on the card rounds its cross products and norms otherwise
+    and reads as far from the CPU's as the kernel does.  Returns
+    dict(live lanes, lanes beyond CLIP_NEAR_TOL (ties), worst point gap
+    over rb, lanes whose rows equal the twin's bit for bit)."""
+    from mujoco_sim_tpu_torch.ops import manifold
+    args = [b[k] for k in manifold.CLIP_ARGS]
+    got = [g.cpu() for g in (got or manifold.feature_clip_cuda(*args))]
+    b = {k: v.cpu() for k, v in b.items()}
+    ref = manifold.feature_clip_plain(*[b[k] for k in manifold.CLIP_ARGS])
+    lead = b["depth"].shape
+    L = b["depth"].numel()
+    flat = lambda out: [o.reshape((L,) + o.shape[len(lead):]) for o in out]
+    (dR, pR, nR, okR, sR), (dG, pG, nG, okG, sG) = flat(ref), flat(got)
+    en = b["enabled"].reshape(-1)
+    off = ~en
+    if not all(torch.equal(r[off], g[off]) for r, g in (
+            (dR, dG), (pR, pG), (nR, nG), (okR, okG), (sR, sG))):
+        raise AssertionError(f"feature_clip {what}: a lane not enabled "
+                             "differs from the miss tuple")
+    aR, aG = dR < 1e8, dG < 1e8
+    if not (torch.equal(okR, okG) and torch.equal(sR > 0, sG > 0)
+            and torch.equal(nR, nG) and torch.equal(aR, aG)
+            and torch.equal(torch.where(aR, dR, 0.0),
+                            torch.where(aG, dG, 0.0))):
+        raise AssertionError(f"feature_clip {what}: ok, the active rows, "
+                             "their depth, the certificate or the normal "
+                             "differ from the twin's")
+    rb = None
+    for v, m_ in ((b["vertsA"], b["vmaskA"]), (b["vertsB"], b["vmaskB"])):
+        r_ = torch.where(m_.reshape(L, -1) > 0.5,
+                         (v.reshape(L, -1, 3) ** 2).sum(-1), 0.0).amax(-1)
+        rb = r_ if rb is None else torch.maximum(rb, r_)
+    rb = rb.sqrt().double()
+    live = en.nonzero()[:, 0].tolist()
+    worst, ties = 0.0, 0
+    for i in live:
+        PR, PG = pR[i][aR[i]].double(), pG[i][aG[i]].double()
+        if not len(PR):
+            continue
+        d = torch.cdist(PR, PG)
+        err = max(float(d.amin(1).max()),
+                  float(d.amin(0).max())) / float(rb[i])
+        if not err <= CLIP_TIE_TOL:
+            raise AssertionError(f"feature_clip {what}: lane {i}'s points "
+                                 f"{err:.3g} rb from the twin's")
+        worst, ties = max(worst, err), ties + int(err > CLIP_NEAR_TOL)
+    if ties > max(1, CLIP_TIE_SHARE * len(live)):
+        raise AssertionError(f"feature_clip {what}: {ties} of {len(live)} "
+                             f"live lanes beyond {CLIP_NEAR_TOL} rb")
+    bitwise = int(((pR == pG).all(-1).all(-1) & (dR == dG).all(-1))[en]
+                  .sum())
+    return dict(live=len(live), ties=ties, max_gap_over_rb=worst,
+                rows_bit_equal=bitwise)
+
+
+def _clip_work(N, live, V, F):
+    """(bytes, flops) the feature clip must move and do: every lane reads
+    its flag and writes 21 floats and a byte; a live lane also reads its
+    depth, normal, hull indices, poses, world and local vertices and mask
+    of both hulls, world face normals and mask, and two 16-row polygons,
+    and does ~20 k flops (the 256 edge crossings and the candidates'
+    reductions, the fallback's 256 segment pairs on the few lanes that
+    take it not counted)."""
+    nbytes = N * (1 + 4 * 21 + 1) + live * (
+        4 * (1 + 3) + 16 + 4 * (2 * (3 + 9 + 3)) + 2 * 4 * V * 7
+        + 2 * 4 * F * 4 + 2 * 16 * 3 * 4)
+    return nbytes, live * 20_000
+
+
+def _clip_summary(held):
+    """compare_clip's records of several captures, pooled."""
+    return dict(captures=len(held), live=sum(h["live"] for h in held),
+                ties=sum(h["ties"] for h in held),
+                rows_bit_equal=sum(h["rows_bit_equal"] for h in held),
+                max_gap_over_rb=max((h["max_gap_over_rb"] for h in held),
+                                    default=0.0),
+                tie_tol=CLIP_TIE_TOL, near_tol=CLIP_NEAR_TOL)
+
+
+def _clip_record(b, what):
+    """The feature clip at captured inputs ``b``: held to its twin
+    (compare_clip), timed beside the twin, and its bound."""
+    from mujoco_sim_tpu_torch.ops import manifold
+    args = [b[k] for k in manifold.CLIP_ARGS]
+    held = compare_clip(b, what)
+    N, V, F = b["depth"].numel(), b["wA"].shape[-2], b["nfA"].shape[-2]
+    bound, by = _bound(*_clip_work(N, held["live"], V, F))
+    return dict(N=N, V=V, F=F, vs_twin=held,
+                ms=_median_ms(lambda: manifold.feature_clip_cuda(*args)),
+                device_ms=_graph_ms(lambda: manifold.feature_clip_cuda(
+                    *args)),
+                plain_ms=_median_ms(lambda: manifold.feature_clip_plain(
+                    *args)),
+                plain_device_ms=_graph_ms(
+                    lambda: manifold.feature_clip_plain(*args), launches=5),
+                bound_ms=bound, bound_by=by)
+
+
 def bighull_main_path(card):
     """manip_bin6_bighull @1024: the manip scene with two pebbles of 256 and
     320 hull vertices, so every step's exact query takes full-hull tables
@@ -2089,7 +2245,8 @@ def bighull_main_path(card):
     d = final[0]
     ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "bighull")
     graph_vs_eager("bighull", m, dw, nsteps, d, card, ctrl_fn=stir,
-                   need=("chol_solve", "graph_loop", "hull_ref_face_depth", "mtv_query"))
+                   need=("chol_solve", "graph_loop", "hull_ref_face_depth",
+                         "mtv_query", "feature_clip"))
     if counts["mtv_query"] != nsteps:
         raise AssertionError(f"bighull: mtv_query ran {counts['mtv_query']} "
                              f"times in {nsteps} steps (one per step)")
@@ -2111,6 +2268,12 @@ def bighull_main_path(card):
         device_ms=_graph_ms(lambda: mtv_query.mtv_query_cuda(*args)),
         plain_ms=_median_ms(lambda: mtv_query.mtv_query_plain(*args)),
         bound_ms=bound, bound_by=by)
+    if not probe.clip:
+        raise AssertionError("bighull: no feature-clip input captured")
+    clip_held = [compare_clip(c, "bighull capture") for c in probe.clip]
+    clip_timing = _clip_record(
+        max(probe.clip, key=lambda c: int(c["enabled"].sum())),
+        "bighull capture")
     phase("bighull_main_path", scene="manip_bin6_bighull.xml",
           tables=dict(V=V, E=E, F=F), nenv=MANIP_NENV, steps=nsteps,
           timed=f"1 rollout of {nsteps} steps after a {nwarm}-step warm-up",
@@ -2125,6 +2288,8 @@ def bighull_main_path(card):
           captured_mtv_calls=len(probe.mtv), live_deep_slots_checked=live,
           mtv_query_vs_twin=dict(max_abs_err=err, near_ties=ties),
           mtv_query_timing=timing, rollout_s=times,
+          feature_clip_vs_twin=_clip_summary(clip_held),
+          feature_clip_timing=clip_timing,
           ms_per_step=min(times) / nsteps * 1e3,
           env_steps_per_s=MANIP_NENV * nsteps / min(times), card=card)
     return m, counts, timing
@@ -2197,7 +2362,7 @@ def precise_main_path(card):
     graph_vs_eager("precise", m, d0, nsteps, d, card, ctrl_fn=stir,
                    eager_steps=5, need=("chol_solve", "graph_loop",
                                         "hull_ref_face_depth", "mtv_query",
-                                        "chol_factor"))
+                                        "chol_factor", "feature_clip"))
     bad = _float_leaves_finite(dw)
     if bad:
         raise AssertionError(f"precise warm-up: non-finite leaves: {bad}")
@@ -2392,7 +2557,8 @@ def terrain_main_path(card):
         if counts[k] == 0:
             raise AssertionError(f"terrain: {k} was never launched")
     graph_vs_eager("terrain", m, dw, nsteps, d, card, ctrl_fn=stir,
-                   need=("chol_solve", "graph_loop", "hull_ref_face_depth", "mtv_query"))
+                   need=("chol_solve", "graph_loop", "hull_ref_face_depth",
+                         "mtv_query", "feature_clip"))
     # mtv_query runs once a step on the deep-pair slots; where no pair is
     # deep its lanes are empty slots (terrain_deep_pass drives live ones)
     if counts["mtv_query"] != nsteps:
@@ -2891,7 +3057,8 @@ def _scale_bounds(m, nenv, probe, what):
     launches at the whole batch's shapes: chol_solve at (nenv, nv), the
     face SAT's calls at the shapes the probe kept, the exact query at the
     live lanes of each round over the whole batch (the probe's first
-    capture), the WHILE predicate on (nenv,) masks."""
+    capture), the feature clip at its lanes and live lanes there, the
+    WHILE predicate on (nenv,) masks."""
     from mujoco_sim_tpu_torch.ops import loops, mtv_query
     per, ms = REPLAY_COUNTS[what], REPLAY_MS[what]
     out = {}
@@ -2923,6 +3090,11 @@ def _scale_bounds(m, nenv, probe, what):
     out["mtv_query"].update(lanes=lanes, live=info["live"],
                             lanes_in_round=info["lanes_in_round"],
                             K=mtv_query.K_EDGE)
+    c = probe.clip[0]
+    b, by = _bound(*_clip_work(lanes, info["live"], c["wA"].shape[-2],
+                               c["nfA"].shape[-2]))
+    row("feature_clip", eager_ms("feature_clip"), b, by)
+    out["feature_clip"].update(lanes=lanes, live=info["live"])
     mask = torch.rand(nenv, device=m.device) < 0.01
     b, by = _bound(nenv + 4, nenv)
     row("graph_loop", _graph_ms(lambda: loops.any_cuda(mask)),
@@ -2970,10 +3142,10 @@ def manip_scale_size(m, nenv, nsteps, card):
         what, m, d0, nsteps, eager_final, card, ctrl_fn=stir,
         eager_steps=2, count_steps=2, then=then,
         need=("chol_solve", "graph_loop", "hull_ref_face_depth",
-              "mtv_query"))
+              "mtv_query", "feature_clip"))
     del eager_final
     for k in ("chol_solve", "hull_ref_face_depth", "mtv_query",
-              "graph_loop"):
+              "graph_loop", "feature_clip"):
         if not REPLAY_COUNTS[what][k]:
             raise AssertionError(f"{what}: {k} did not run in a replay")
     d50 = res["final"] if then else mst.rollout(m, d0, SCALE_BAND_STEPS,
@@ -2990,6 +3162,9 @@ def manip_scale_size(m, nenv, nsteps, card):
         live += int(enabled.sum())
     if not probe.mtv:
         raise AssertionError(f"{what}: no exact-query input captured")
+    clip_held = _clip_summary([
+        compare_clip(c, f"{what} capture", got)
+        for c, got in zip(probe.clip, probe.clip_out)])
     # the first 1024 envs against the 1024-env batch from the same start
     first = slice(0, MANIP_NENV)
     d0s = mst.make_data(m, MANIP_NENV)
@@ -3033,7 +3208,7 @@ def manip_scale_size(m, nenv, nsteps, card):
                  "(and envs with a live deep slot for the exact query), "
                  "rows of the launches on the whole batch",
             **held, mtv_query_max_abs_err=mtv_err, mtv_ties=mtv_ties,
-            mtv_live_lanes=live),
+            mtv_live_lanes=live, feature_clip=clip_held),
         first_1024=dict(after_one_step=dev_one, tol=SHARD_TOL,
                         after_band_steps=band,
                         required_fraction=MANIP_CROSS_FRACTION),

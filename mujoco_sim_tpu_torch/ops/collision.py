@@ -720,6 +720,7 @@ def _mesh_mesh(p1, R1, verts1, planes1, vmask1,
     score = torch.where(use_exact, depth_sat, -torch.inf)
     k = _rank_slots(score, D)                                # (..., D)
     en = torch.isfinite(_pick(score, k))                     # slot in use
+    profiler.count_sum("deep.lanes", en)
 
     def sel(x):
         g = torch.take_along_dim(

@@ -50,6 +50,7 @@ KERNELS = {
     "face_sat": ("face_sat.cu", _NO_FMA),
     "graph_loop": ("graph_loop.cu", ()),
     "trace_stamp": ("trace_stamp.cu", ()),
+    "feature_clip": ("feature_clip.cu", _NO_FMA),
 }
 HEADERS = ("support.cuh", "chol_factor.cuh", "async_copy.cuh", "face_sat.cuh")
 

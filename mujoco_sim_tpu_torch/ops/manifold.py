@@ -19,7 +19,9 @@ normal, positioned on the mid-surface plane.
 
 The exact MTV comes from ops/mtv_query.py (a complete separating-axis
 scan: face normals of both hulls, then edge-cross refinement rounds; the
-hand-written CUDA kernel on the card).  The feature-clip stage classifies
+hand-written CUDA kernel on the card).  The feature-clip stage
+(``feature_clip``: csrc/feature_clip.cu on the card, its plain twin
+``feature_clip_plain`` on the CPU) classifies
 each hull's contact feature (verts within ~1e-3*rbound of its support
 plane along the MTV), represents it as an ordered polygon (the hull's
 merged-face polygon when a face aligns, a thin rectangle around the
@@ -29,17 +31,27 @@ Sutherland-Hodgman vertex set without its sequential clip passes), and
 reduces the intersection to <= 4 spread points.
 
 Nothing here asks the host: the query is computed for every lane it is
-given and disabled lanes are replaced by the miss tuple with
-``torch.where`` (callers compact the few deep pairs into a few lanes).
+given and disabled lanes are replaced by the miss tuple (``torch.where``
+in the twin; the kernel writes it and skips the lane), callers compact
+the few deep pairs into a few lanes.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from mujoco_sim_tpu_torch.ops import cuda_build
 from mujoco_sim_tpu_torch.ops import mtv_query as mtv_mod
 from mujoco_sim_tpu_torch.ops import support_minmax as support_mod
 from mujoco_sim_tpu_torch.ops.math import cross, norm
+from mujoco_sim_tpu_torch.runtime import profiler
+
+# launches of the feature-clip kernel (csrc/feature_clip.cu), and nothing
+# else
+LAUNCHES = 0
 
 # feature window as a fraction of hull bounding radius (the ~1e-3 rad
 # multiCCD tilt; calibrated on cube probes: 0.05 deg tilt keeps the face
@@ -322,7 +334,7 @@ def exact_pair_contacts(pA, RA, hidA, cylA, pB, RB, hidB, cylB, enabled,
     (dict of SHARED stacked tensors: vert (nh, V, 3), vmask, fplane
     (nh, F, 4), fmask, fpoly (nh, F, 16, 3), hedge (nh, E, 2, 3), hemask)
     and are gathered here.  ``mtv`` is the exact-MTV query (the kernel
-    wrapper by default).
+    wrapper by default); the feature clip after it is ``feature_clip``.
 
     Returns (dist (..., 4), pos (..., 4, 3), n (..., 3), ok (...,), sepd
     (...,)): up to 4 active rows (dist < 0, the others 1e9), every active
@@ -332,9 +344,14 @@ def exact_pair_contacts(pA, RA, hidA, cylA, pB, RB, hidB, cylB, enabled,
     SAT separation, a lower bound on the true distance).  A lane with
     ``enabled`` false returns exactly the miss tuple (1e9, 0, +z, False,
     0), whatever its inputs hold."""
-    dtype = pA.dtype
-    validA, validB = hidA >= 0, hidB >= 0
-    iA, iB = hidA.clamp(min=0), hidB.clamp(min=0)
+    return feature_clip(*clip_inputs(pA, RA, hidA, cylA, pB, RB, hidB, cylB,
+                                     tables, mtv), enabled)
+
+
+def clip_inputs(pA, RA, hidA, cylA, pB, RB, hidB, cylB, tables,
+                mtv=mtv_mod.mtv_query):
+    """The lanes' gathered tables, their world transforms and the exact
+    MTV: ``feature_clip``'s arguments but ``enabled``, in its order."""
 
     def tabs(hid):
         return [gather_hull(hid, tables[k]) for k in
@@ -346,12 +363,26 @@ def exact_pair_contacts(pA, RA, hidA, cylA, pB, RB, hidB, cylB, enabled,
     wB = pB[..., None, :] + _rot(RB, vertsB)
     nfA = _rot(RA, fplaneA[..., :3])
     nfB = _rot(RB, fplaneB[..., :3])
+    RA, RB = RA.contiguous(), RB.contiguous()
+    pA, pB = pA.contiguous(), pB.contiguous()
+    cylA, cylB = cylA.contiguous(), cylB.contiguous()
+    depth, n = mtv(wA, wB, hedgeA, hedgeB, hmaskA, hmaskB, nfA, nfB,
+                   fmaskA, fmaskB, RA, RB, pA, pB, cylA, cylB)
+    return (wA, wB, vertsA, vertsB, vmaskA, vmaskB, nfA, nfB, fmaskA, fmaskB,
+            pA, pB, RA, RB, cylA, cylB, hidA, hidB,
+            tables["fpoly"].contiguous(), depth, n)
+
+
+def feature_clip_plain(wA, wB, vertsA, vertsB, vmaskA, vmaskB, nfA, nfB,
+                       fmaskA, fmaskB, pA, pB, RA, RB, cylA, cylB, hidA, hidB,
+                       fpoly, depth, n, enabled):
+    """Plain PyTorch version of ``feature_clip`` (any device, any float
+    dtype, any leading dims)."""
+    dtype = pA.dtype
+    validA, validB = hidA >= 0, hidB >= 0
+    iA, iB = hidA.clamp(min=0), hidB.clamp(min=0)
     awA = RA[..., :, 2]            # cylinder axis = local +z
     awB = RB[..., :, 2]
-    depth, n = mtv(wA, wB, hedgeA, hedgeB, hmaskA, hmaskB, nfA, nfB,
-                   fmaskA, fmaskB, RA.contiguous(), RB.contiguous(),
-                   pA.contiguous(), pB.contiguous(), cylA.contiguous(),
-                   cylB.contiguous())
     ok = enabled & (depth > 0.0) & (depth < 1e8)
 
     rbA = torch.sqrt(_masked_max((vertsA ** 2).sum(-1), vmaskA > 0.5))
@@ -371,9 +402,9 @@ def exact_pair_contacts(pA, RA, hidA, cylA, pB, RB, hidB, cylB, enabled,
     c_mid = 0.5 * (sA + sB)
 
     polyA = _feature_poly(wA, vmaskA, n, sA, 1.0, nfA, fmaskA, iA, validA,
-                          tables["fpoly"], pA, RA, rbA, pA, awA, cylA)
+                          fpoly, pA, RA, rbA, pA, awA, cylA)
     polyB = _feature_poly(wB, vmaskB, n, sB, -1.0, nfB, fmaskB, iB, validB,
-                          tables["fpoly"], pB, RB, rbB, pB, awB, cylB)
+                          fpoly, pB, RB, rbB, pB, awB, cylB)
 
     # 2D frame on the contact plane; A's polygon is CCW about +n (fpoly
     # winds CCW about the outward face normal ~ +n for A); B's winds CW
@@ -441,3 +472,95 @@ def exact_pair_contacts(pA, RA, hidA, cylA, pB, RB, hidB, cylB, enabled,
     pos = torch.where(en[..., None, None], pos, 0.0)
     n = torch.where(en[..., None], n, up)
     return dist, pos, n, ok, sepd
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
+    lib = cuda_build.load("feature_clip")
+    lib.feature_clip_f32.restype = ctypes.c_int
+    lib.feature_clip_f32.argtypes = ([ctypes.c_void_p] * 27
+                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return lib
+
+
+# feature_clip's tensor arguments, in call order
+CLIP_ARGS = ("wA", "wB", "vertsA", "vertsB", "vmaskA", "vmaskB", "nfA", "nfB",
+             "fmaskA", "fmaskB", "pA", "pB", "RA", "RB", "cylA", "cylB",
+             "hidA", "hidB", "fpoly", "depth", "n", "enabled")
+
+
+def feature_clip_cuda(wA, wB, vertsA, vertsB, vmaskA, vmaskB, nfA, nfB,
+                      fmaskA, fmaskB, pA, pB, RA, RB, cylA, cylB, hidA, hidB,
+                      fpoly, depth, n, enabled):
+    """Launch the CUDA kernel: the float tensors float32, hidA/hidB int64,
+    enabled bool, every one contiguous on one CUDA device, the per-lane
+    ones with the same leading lane dims; fpoly (nh, F, 16, 3) shared."""
+    global LAUNCHES
+    fn = "feature_clip_cuda"
+    lead = wA.shape[:-2]
+    V, F = wA.shape[-2], nfA.shape[-2]
+    got = (wA, wB, vertsA, vertsB, vmaskA, vmaskB, nfA, nfB, fmaskA, fmaskB,
+           pA, pB, RA, RB, cylA, cylB, hidA, hidB, fpoly, depth, n, enabled)
+    want = ((V, 3), (V, 3), (V, 3), (V, 3), (V,), (V,), (F, 3), (F, 3),
+            (F,), (F,), (3,), (3,), (3, 3), (3, 3), (3,), (3,), (), (), None,
+            (), (3,), ())
+    floats = {}
+    for name, t, shape in zip(CLIP_ARGS, got, want):
+        if shape is None:
+            if fpoly.dim() != 4 or fpoly.shape[1:] != (F, 16, 3):
+                raise ValueError(f"{fn}: fpoly has shape "
+                                 f"{tuple(fpoly.shape)}, expected "
+                                 f"(nh, {F}, 16, 3)")
+        elif t.shape != lead + shape:
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(lead + shape)}")
+        if name in ("hidA", "hidB", "enabled"):
+            dtype = torch.bool if name == "enabled" else torch.int64
+            if t.dtype != dtype or not t.is_contiguous():
+                raise TypeError(f"{fn}: {name} must be contiguous {dtype}, "
+                                f"is {t.dtype}")
+            if t.device != wA.device:
+                raise ValueError(f"{fn}: {name} is on {t.device}, expected "
+                                 f"{wA.device}")
+        else:
+            floats[name] = t
+    dev = cuda_build.check_f32_cuda(fn, **floats)
+    dist = torch.empty(lead + (4,), dtype=torch.float32, device=dev)
+    pos = torch.empty(lead + (4, 3), dtype=torch.float32, device=dev)
+    n_out = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
+    ok = torch.empty(lead, dtype=torch.bool, device=dev)
+    sepd = torch.empty(lead, dtype=torch.float32, device=dev)
+    rc = cuda_build.launch(
+        dev, _load().feature_clip_f32, *[t.data_ptr() for t in got],
+        dist.data_ptr(), pos.data_ptr(), n_out.data_ptr(), ok.data_ptr(),
+        sepd.data_ptr(), depth.numel(), V, F)
+    if rc != 0:
+        raise RuntimeError(f"feature_clip kernel launch failed: "
+                           f"cudaError {rc}")
+    LAUNCHES += 1
+    profiler.count("feature_clip", dev)
+    return dist, pos, n_out, ok, sepd
+
+
+def feature_clip(wA, wB, vertsA, vertsB, vmaskA, vmaskB, nfA, nfB, fmaskA,
+                 fmaskB, pA, pB, RA, RB, cylA, cylB, hidA, hidB, fpoly, depth,
+                 n, enabled):
+    """The feature clip of the exact manifold: from each lane's exact MTV
+    (depth, n) to its <= 4 contacts, as exact_pair_contacts returns them.
+
+    Per lane: the world vertices wA/wB (..., V, 3), the local vertices
+    vertsA/vertsB and their masks vmaskA/vmaskB (..., V), the world face
+    normals nfA/nfB (..., F, 3) and masks fmaskA/fmaskB, the poses pA/pB,
+    RA/RB, the cylinder descriptors cylA/cylB, the hull indices hidA/hidB
+    (-1: an empty slot), the query's depth and n, and enabled; fpoly (nh,
+    F, 16, 3) is the SHARED local face-polygon table.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    twin."""
+    args = (wA, wB, vertsA, vertsB, vmaskA, vmaskB, nfA, nfB, fmaskA, fmaskB,
+            pA, pB, RA, RB, cylA, cylB, hidA, hidB, fpoly, depth, n, enabled)
+    if wA.device.type == "cuda":
+        return feature_clip_cuda(*args)
+    if wA.device.type == "cpu":
+        return feature_clip_plain(*args)
+    raise ValueError(f"feature_clip: unsupported device {wA.device}")

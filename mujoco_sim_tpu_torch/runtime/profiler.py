@@ -9,7 +9,9 @@ that the entry points replay (utils/graph.StepGraph):
   kernels' launches (``LAUNCH_COUNTS``), for each named loop of the
   step (ops/loops.while_loop) the iterations its WHILE node ran and the
   iterations its envs needed (the active mask summed over each
-  iteration), the steps run and the contacts collision found.  The adds
+  iteration), the steps run, the contacts collision found and the live
+  lanes of the deep-pair exact manifold (``deep.lanes``: the enabled
+  slots of each mesh-mesh group's compaction, of its envs x 8).  The adds
   run where the work runs: inside a capture they are nodes of the graph
   (in WHILE bodies too), so every replay counts its own work;
 * stage stamps (``STAMPS``) at the boundaries of the step's stage
@@ -58,12 +60,12 @@ import torch
 # (each wrapper adds one where it launches the kernel: ``count``)
 LAUNCH_COUNTS = ("chol_solve", "chol_factor", "hull_ref_face_depth",
                  "face_sat_depth", "mtv_query", "support_minmax",
-                 "graph_loop", "trace_stamp")
+                 "graph_loop", "trace_stamp", "feature_clip")
 # the named loops of the step (ops/loops.while_loop's ``name``)
 LOOPS = ("newton", "linesearch", "bracket", "gjk")
 SLOTS = LAUNCH_COUNTS + tuple(
     f"loop.{n}.{k}" for n in LOOPS for k in ("iters", "env_iters")) + (
-    "step.count", "contacts")
+    "step.count", "contacts", "deep.lanes")
 _SLOT = {n: i for i, n in enumerate(SLOTS)}
 _LOOP = {n: (_SLOT[f"loop.{n}.iters"], _SLOT[f"loop.{n}.env_iters"])
          for n in LOOPS}

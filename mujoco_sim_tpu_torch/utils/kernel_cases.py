@@ -1,4 +1,5 @@
-"""Seeded edge-case inputs of the Cholesky, MTV and face-SAT kernels.
+"""Seeded edge-case inputs of the Cholesky, MTV, face-SAT and feature-clip
+kernels.
 
 One set of cases, made with numpy from a seed, so that the same inputs go
 through three comparisons: the plain twins against the JAX package on the
@@ -17,8 +18,12 @@ slots; for the face-SAT queries (hull_sat and
 face_sat) the layouts of csrc/face_sat.cuh (V <= 8, <= 32 and the tiled
 V > 32; F past a multiple of the face groups), K = V - 1, an instance with
 every point masked, exactly tied reference faces and depths, a lateral
-filter that drops every point, per-instance and scalar slack, no mask; and
-systems above the register classes of the Cholesky kernels.
+filter that drops every point, per-instance and scalar slack, no mask;
+systems above the register classes of the Cholesky kernels; and for the
+exact manifold's feature clip one lane of each contact feature (faces,
+an edge on a face, crossing edges, a vertex, a cylinder's side, cap and
+rim, the closest-boundary fallback, a separated pair, lanes not enabled)
+and the pebbles' large tables.
 
 Everything is float64 numpy; callers cast.
 """
@@ -29,6 +34,7 @@ import functools
 
 import numpy as np
 
+from mujoco_sim_tpu_torch.ops.manifold import CLIP_ARGS as CLIP_ORDER
 from mujoco_sim_tpu_torch.ops.mtv_query import ARG_NAMES as MTV_ORDER
 
 CHOL_BATCH = 37          # a multiple of nothing the kernels tile by
@@ -182,8 +188,9 @@ def fibonacci_ellipsoid(n: int, a: float, b: float, c: float) -> np.ndarray:
 def pebble_tables(n: int):
     """The exact-manifold tables the port's compiler builds for one mesh of
     n Fibonacci-ellipsoid vertices (rounded to 5 decimals, as written into
-    the fixture): vert (V, 3) repeat-padded, fplane (F, 4), fmask (F,),
-    hedge (E, 2, 3), hemask (E,), all local and read-only."""
+    the fixture): vert (V, 3) repeat-padded, vmask (V,), fplane (F, 4),
+    fmask (F,), fpoly (F, 16, 3), hedge (E, 2, 3), hemask (E,), all local
+    and read-only."""
     from mujoco_sim_tpu_torch.models import compile as mcompile
     from mujoco_sim_tpu_torch.models import mjcf
     v = np.round(fibonacci_ellipsoid(n, *PEBBLE_AXES), 5)
@@ -193,8 +200,9 @@ def pebble_tables(n: int):
            '<geom type="mesh" mesh="p"/></body></worldbody></mujoco>')
     m = mcompile.compile_spec(mjcf.parse_mjcf_string(xml))
     out = {k: np.array(getattr(m, src))[0] for k, src in (
-        ("vert", "mesh_vert_hi"), ("fplane", "mesh_fplane"),
-        ("fmask", "mesh_fmask"), ("hedge", "mesh_hedge"),
+        ("vert", "mesh_vert_hi"), ("vmask", "mesh_vert_hi_mask"),
+        ("fplane", "mesh_fplane"), ("fmask", "mesh_fmask"),
+        ("fpoly", "mesh_fpoly"), ("hedge", "mesh_hedge"),
         ("hemask", "mesh_hedge_mask"))}
     for v in out.values():          # shared by every caller: read-only
         v.setflags(write=False)
@@ -234,6 +242,142 @@ def mtv_big_case(name: str, N: int = 5, seed: int = 0):
     out = {k + "A": v for k, v in A.items()}
     out.update({k + "B": v for k, v in B.items()})
     return out
+
+
+# The feature clip (ops/manifold.feature_clip) on hand-built lanes: a cube
+# of half extent CLIP_H (an 8-vertex mesh) as hull A at the origin, and as
+# hull B a second cube or a cylinder (radius 0.04, half-height 0.015: its
+# 16-gon prism with the analytic flag), posed for each contact feature;
+# depth and n from the exact query's twin, except "empty_clip", where n is
+# set to +z for two cubes side by side, so that their features do not
+# overlap and the clip takes its closest-boundary fallback.
+CLIP_H = 0.1
+# name -> (hull B, its position / CLIP_H, its rotation (turns about an
+# axis, applied in order), enabled, the active rows the twin gives)
+_X, _Y, _Z = (1, 0, 0), (0, 1, 0), (0, 0, 1)
+_CLIP_POSES = {
+    "face_face": ("cube", (1.2, 0.8, 1.5), (), True, 4),
+    "edge_face": ("cube", (0.5, 0.3, 1 + 2 ** 0.5 - 0.05),
+                  ((_X, np.pi / 4),), True, 2),
+    # B's edge along (1, 0, -1) across A's top edge along y, 0.02 deep
+    "edge_edge": ("cube", (1 + (2 ** 0.5 - 0.02) / 2 ** 0.5, 0.1,
+                           1 + (2 ** 0.5 - 0.02) / 2 ** 0.5),
+                  ((_X, np.pi / 4), (_Y, np.pi / 4)), True, 1),
+    "vertex_face": ("cube", (0.0, 0.0, 2.5),
+                    (((1, 1, 0), np.arccos(1 / np.sqrt(3))),), True, 1),
+    "cyl_side": ("cyl", (0.3, 0.5, 1.2), ((_X, np.pi / 2),), True, 3),
+    "cyl_cap": ("cyl", (0.2, 0.1, 1.13), (), True, 4),
+    "cyl_rim": ("cyl", (0.1, -0.2, 1.25), ((_X, 0.5),), True, 1),
+    "separated": ("cube", (0.3, 0.0, 2.4), ((_Z, 0.3),), True, 0),
+    "empty_clip": ("cube", (3.0, 0.0, 1.9), (), True, 1),
+    "disabled": ("cube", (1.2, 0.8, 1.5), (), False, 0),
+    "empty_slot": (None, (0.0, 0.0, 0.0), (), False, 0),
+}
+CLIP_CASES = tuple(_CLIP_POSES)
+_CLIP_XML = """<mujoco><asset><mesh name="cube" vertex="{cube}"/></asset>
+<worldbody>
+<body pos="0 0 0"><freejoint/><geom type="mesh" mesh="cube"/></body>
+<body pos="0 0 0.5"><freejoint/><geom type="mesh" mesh="cube"/></body>
+<body pos="0.5 0 0.5"><freejoint/><geom type="cylinder" size="0.04 0.015"/>
+</body></worldbody></mujoco>"""
+
+
+def _rotation(turns):
+    """The rotation of turns (axis, angle) applied in order."""
+    R = np.eye(3)
+    for axis, angle in turns:
+        a = np.asarray(axis, float) / np.linalg.norm(axis)
+        K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        R = (np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K) @ R
+    return R
+
+
+@functools.lru_cache(maxsize=None)
+def clip_tables():
+    """(tables, cylinder descriptors (nh, 3), {"cube": hid, "cyl": hid}) of
+    the clip cases' scene, float64 numpy, read-only."""
+    from mujoco_sim_tpu_torch.models import compile as mcompile
+    from mujoco_sim_tpu_torch.models import mjcf
+    cube = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                     for z in (-1, 1)], float) * CLIP_H
+    m = mcompile.compile_spec(mjcf.parse_mjcf_string(_CLIP_XML.format(
+        cube=" ".join(f"{v:.6f}" for v in cube.ravel()))))
+    tables = {k: np.asarray(getattr(m, f), np.float64) for k, f in (
+        ("vert", "mesh_vert_hi"), ("vmask", "mesh_vert_hi_mask"),
+        ("fplane", "mesh_fplane"), ("fmask", "mesh_fmask"),
+        ("fpoly", "mesh_fpoly"), ("hedge", "mesh_hedge"),
+        ("hemask", "mesh_hedge_mask"))}
+    hulls = {"cube": int(m.layout.geom_hullid[0]),
+             "cyl": int(m.layout.geom_hullid[2])}
+    cyl = np.asarray(m.mesh_cyl, np.float64)
+    for v in list(tables.values()) + [cyl]:
+        v.setflags(write=False)
+    return tables, cyl, hulls
+
+
+def _clip_args(pA, RA, hidA, pB, RB, hidB, enabled, tables, cyl):
+    """feature_clip's arguments (CLIP_ORDER) for lanes given by their
+    poses and hull indices, with the exact query's twin, float64 numpy."""
+    import torch
+    from mujoco_sim_tpu_torch.ops import manifold, mtv_query
+    t = torch.tensor
+    tab = {k: t(v) for k, v in tables.items()}
+    cy = lambda hid: manifold.gather_hull(t(hid), t(cyl))
+    args = manifold.clip_inputs(t(pA), t(RA), t(hidA), cy(hidA), t(pB),
+                                t(RB), t(hidB), cy(hidB), tab,
+                                mtv=mtv_query.mtv_query_plain)
+    return dict(zip(CLIP_ORDER, [a.numpy() for a in args]
+                    + [np.asarray(enabled, bool)]))
+
+
+def clip_case(names=CLIP_CASES):
+    """{argument: array} of feature_clip over one lane for each name of
+    CLIP_CASES (float64; hidA/hidB int64, enabled bool), and the active
+    rows each gives."""
+    tables, cyl, hulls = clip_tables()
+    L = len(names)
+    poses = [_CLIP_POSES[k] for k in names]
+    hidA = np.array([hulls["cube"] if p[0] else -1 for p in poses])
+    hidB = np.array([hulls[p[0]] if p[0] else -1 for p in poses])
+    pA = np.zeros((L, 3))
+    RA = np.tile(np.eye(3), (L, 1, 1))
+    pB = np.array([p[1] for p in poses]) * CLIP_H
+    RB = np.stack([_rotation(p[2]) for p in poses])
+    empty = hidB < 0
+    RA[empty] = RB[empty] = 0.0          # an empty slot is all zeros
+    out = _clip_args(pA, RA, hidA, pB, RB, hidB,
+                     [p[3] for p in poses], tables, cyl)
+    for i, k in enumerate(names):
+        if k == "empty_clip":
+            out["n"][i] = (0.0, 0.0, 1.0)
+            out["depth"][i] = 0.01
+    return out, [p[4] for p in poses]
+
+
+def clip_big_case(name: str, N: int = 5, seed: int = 0):
+    """{argument: array} of feature_clip (CLIP_ORDER) over the lanes of
+    mtv_big_case(name, N, seed): the pebble's tables as hull 0 of a
+    one-hull table, the exact query's twin for depth and n; its empty
+    slots (every input zero) have hull index -1 and are not enabled, and
+    its cylinder-flagged lanes take the analytic features."""
+    import torch
+    from mujoco_sim_tpu_torch.ops import mtv_query
+    b = mtv_big_case(name, N, seed)
+    t = pebble_tables(_PEBBLES[name])
+    depth, n = mtv_query.mtv_query_plain(
+        *[torch.tensor(b[k]) for k in MTV_ORDER])
+    live = (np.arange(N) % 5 != 2)
+    each = lambda x: np.where(
+        live.reshape((N,) + (1,) * x.ndim), x[None], 0.0)
+    out = dict(wA=b["wA"], wB=b["wB"], vertsA=each(t["vert"]),
+               vertsB=each(t["vert"]), vmaskA=each(t["vmask"]),
+               vmaskB=each(t["vmask"]), nfA=b["nfA"], nfB=b["nfB"],
+               fmaskA=b["fmA"], fmaskB=b["fmB"], pA=b["pA"], pB=b["pB"],
+               RA=b["RA"], RB=b["RB"], cylA=b["cylA"], cylB=b["cylB"],
+               hidA=np.where(live, 0, -1), hidB=np.where(live, 0, -1),
+               fpoly=np.asarray(t["fpoly"])[None], depth=depth.numpy(),
+               n=n.numpy(), enabled=live)
+    return {k: out[k] for k in CLIP_ORDER}
 
 
 SAT_BATCH = 37            # not a multiple of the instances a warp holds
