@@ -22,6 +22,16 @@ through utils/graph.StepGraph, as the JAX package jits its sharded step
 and rollout: one graph per shard (each shard has its own input buffers and
 pool), and ``rollout_traj`` writes each step's observation into its row
 of a trajectory buffer inside the graph.
+
+A sharded call issues every shard's work from this one host thread, shard
+after shard, each on its own device's current stream, and waits on none:
+the devices run side by side, and the caller synchronizes them.  While
+tracing (runtime/profiler), a sharded rollout is the span
+``mesh.sharded_rollout`` (``shards``, ``envs``, ``steps``), each shard's
+issue a child ``mesh.shard`` (``device``) over its graph's
+``graph.load`` / ``graph.replay`` / ``graph.result``, and ``scatter``, a
+reset's copy of a whole batch into the shards, the span ``mesh.scatter``
+(``bytes``).
 """
 
 from __future__ import annotations
@@ -34,11 +44,11 @@ import torch
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.model import Model, Data
 from mujoco_sim_tpu_torch.parallel.rollout import (  # noqa: F401
-    _carry, batched_step, rollout,
+    _carry, _step_fn, batched_step, rollout,
 )
 from mujoco_sim_tpu_torch.runtime import profiler
 from mujoco_sim_tpu_torch.utils import graph
-from mujoco_sim_tpu_torch.utils.struct import map_leaves
+from mujoco_sim_tpu_torch.utils.struct import leaves_with_keys, map_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,17 +169,64 @@ class Sharded:
         return _cat(self.shards, device)
 
 
-def shard_batch(dB: Data, mesh: EnvMesh) -> Sharded:
-    """Split a batch (this process's envs) into equal shards in env order,
-    each copied to its device."""
-    n = dB.qpos.shape[0]
-    per, rem = divmod(n, len(mesh.local))
+def _tensors(x) -> list:
+    """The tensor leaves of a Data (nested containers included) or a
+    tensor, in a fixed order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [v for _, v in leaves_with_keys(x)]
+
+
+def _per(dB, shards: int) -> int:
+    """Envs a shard of a batch (a Data or a tensor, env axis first)."""
+    n = _tensors(dB)[0].shape[0]
+    per, rem = divmod(n, shards)
     if rem:
-        raise ValueError(f"{n} envs do not split over "
-                         f"{len(mesh.local)} shards")
-    return Sharded([
-        map_leaves(lambda x: x[i * per:(i + 1) * per].to(dev, copy=True), dB)
-        for i, dev in enumerate(mesh.local_devices)], mesh)
+        raise ValueError(f"{n} envs do not split over {shards} shards")
+    return per
+
+
+def shard_batch(dB, mesh: EnvMesh) -> Sharded:
+    """Split a batch (this process's envs: a Data, or a tensor with the
+    env axis first) into equal shards in env order, each copied to its
+    device."""
+    per = _per(dB, len(mesh.local))
+
+    def part(i, dev):
+        take = lambda x: x[i * per:(i + 1) * per].to(dev, copy=True)
+        return take(dB) if isinstance(dB, torch.Tensor) else map_leaves(
+            take, dB)
+    return Sharded([part(i, dev) for i, dev in
+                    enumerate(mesh.local_devices)], mesh)
+
+
+def scatter(dB, dS: Sharded) -> Sharded:
+    """Write a whole batch (this process's envs: a Data, or a tensor with
+    the env axis first, on any one device) into the existing shards of
+    ``dS`` in place, each shard its slice of the rows, and return ``dS``.
+
+    The reset of a sharded rollout: no shard is made anew, so whatever
+    holds the shards' tensors (a graph's control inputs, a caller's
+    references) sees the new rows.  A copy to another card is queued on
+    the destination card's stream after the source card's work; the host
+    waits for none of it."""
+    shards = dS.shards
+    per = _per(dB, len(shards))
+    src = _tensors(dB)
+    with profiler.span("mesh.scatter") as sp:
+        nbytes = 0
+        for i, (dev, shard) in enumerate(zip(dS.mesh.local_devices, shards)):
+            dst = _tensors(shard)
+            if len(dst) != len(src):
+                raise ValueError("scatter: the batch and the shards hold "
+                                 "different leaves")
+            with _on(dev):
+                for a, b in zip(dst, src):
+                    a.copy_(b[i * per:(i + 1) * per])
+                    nbytes += a.nbytes
+        if sp is not None:
+            sp.attrs["bytes"] = nbytes
+    return dS
 
 
 def make_batch(m: Model, nenv: int, mesh: EnvMesh | None = None,
@@ -249,19 +306,24 @@ def _check(dS: Sharded, mesh: EnvMesh):
                          "make_batch(m, nenv, mesh) or shard_batch(d, mesh)")
 
 
-def _per_shard(mesh: EnvMesh, fn):
-    """Callable (m, dS) -> dS applying fn(graph, model, shard) to each
-    shard on its device, in turn, with a StepGraph of the step for each
-    shard (m from replicate_model, or a Model on the shards' one
-    device)."""
-    graphs = [graph.StepGraph(engine.step) for _ in mesh.local]
+def _per_shard(mesh: EnvMesh, fn, steps=None):
+    """Callable (m, dS, *args) -> dS applying fn(graph, model, shard,
+    *args) to each shard on its device, in turn, with a StepGraph of
+    ``steps[i]`` (default engine.step) for shard i (m from
+    replicate_model, or a Model on the shards' one device).  Nothing here
+    waits on a device: the work of every shard is queued before the call
+    returns."""
+    steps = steps or [engine.step] * len(mesh.local)
+    graphs = [graph.StepGraph(s) for s in steps]
 
-    def run(m_, dS: Sharded) -> Sharded:
+    def run(m_, dS: Sharded, *args) -> Sharded:
         _check(dS, mesh)
         out = []
         for g, dev, d in zip(graphs, mesh.local_devices, dS.shards):
-            with _on(dev):
-                out.append(fn(g, _model_for(m_, dev), d))
+            with _on(dev), profiler.span("mesh.shard") as sp:
+                if sp is not None:
+                    sp.attrs["device"] = str(dev)
+                out.append(fn(g, _model_for(m_, dev), d, *args))
         return Sharded(out, mesh)
 
     run.graphs = graphs
@@ -273,12 +335,41 @@ def make_sharded_step(m: Model, mesh: EnvMesh):
     return _per_shard(mesh, lambda g, m_, d: g(m_, d))
 
 
-def make_sharded_rollout(m: Model, mesh: EnvMesh, nsteps: int):
-    """Callable (m, dS) -> dS: ``nsteps`` steps of each shard, carrying the
-    recurrent leaves as parallel/rollout.rollout does."""
-    if nsteps <= 0:
-        return _per_shard(mesh, lambda g, m_, d: d)
-    return _per_shard(mesh, lambda g, m_, d: g.run(m_, d, n=nsteps))
+def make_sharded_rollout(m: Model, mesh: EnvMesh, nsteps: int | None = None,
+                         ctrl_fn=None):
+    """Callable (m, dS, n=nsteps) -> dS: ``n`` steps of each shard,
+    carrying the recurrent leaves as parallel/rollout.rollout does.
+
+    ``n`` may change from call to call: each shard's graph is captured
+    once and replayed n times, whatever n is.  ``ctrl_fn``, if given, is
+    a sequence of ctrl_fn(d) -> ctrl, one per shard of this process in
+    shard order, each reading its own shard's inputs on its shard's
+    device; shard i's sets the controls before each step inside shard
+    i's graph, as rollout's ctrl_fn does.  The call queues every shard's
+    work and returns; the caller synchronizes the devices."""
+    fns = [None] * len(mesh.local) if ctrl_fn is None else list(ctrl_fn)
+    if len(fns) != len(mesh.local):
+        raise ValueError(f"{len(fns)} ctrl_fns for the {len(mesh.local)} "
+                         "shards of this process")
+    per_shard = _per_shard(mesh, lambda g, m_, d, n: g.run(m_, d, n=n),
+                           [_step_fn(f) for f in fns])
+
+    def run(m_, dS: Sharded, n: int | None = None) -> Sharded:
+        n = nsteps if n is None else n
+        if n is None:
+            raise TypeError("make_sharded_rollout: give the steps, when "
+                            "made or when called")
+        if n <= 0:
+            _check(dS, mesh)
+            return dS
+        with profiler.span("mesh.sharded_rollout") as sp:
+            if sp is not None:
+                sp.attrs.update(shards=len(dS.shards), steps=n, envs=sum(
+                    d.qpos.shape[0] for d in dS.shards))
+            return per_shard(m_, dS, n)
+
+    run.graphs = per_shard.graphs
+    return run
 
 
 def _ring_p2p(pos, quat, mesh: EnvMesh, device):

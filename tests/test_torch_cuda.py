@@ -752,6 +752,77 @@ def test_sharded_rollout_on_one_card_matches_unsharded(cuda_device):
 
 
 @pytest.mark.cuda
+def test_sharded_rollout_on_every_card(cuda_device):
+    """A shard on each card, the current device left at cuda:0: the
+    kernels, the WHILE nodes, the recorder's table and ring and
+    put_model's plans follow the shard's card.  Each shard, stirred by its
+    own slice of the phases inside its graph, equals the same shard
+    stepped on cuda:0 alone (the band the sharded rollouts are held to;
+    the same shard sizes, so no other batch size picks another GEMM);
+    each card counts and stamps its own steps; a reset from a cuda:0
+    batch writes every card's shard in place."""
+    import contextlib
+    from mujoco_sim_tpu_torch.parallel import mesh as pmesh
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    torch.cuda.set_device(0)
+    m = mst.put_model(mst.load_model(str(FIXTURES / "manip_bin6.xml")))
+    nenv = 64 * n
+    d = mst.make_data(m, nenv)
+    phase = torch.tensor(np.random.default_rng(4).uniform(
+        0, 6.28, (nenv, m.nu)), dtype=torch.float32, device="cuda:0")
+
+    def sharded(devs):
+        mesh = pmesh.make_env_mesh(devs)
+        mR = pmesh.replicate_model(m, mesh)
+        pS = pmesh.shard_batch(phase, mesh)
+        run = pmesh.make_sharded_rollout(mR, mesh, ctrl_fn=[
+            lambda d_, p=p: torch.sin(4.0 * d_.time[:, None] + p)
+            for p in pS.shards])
+        return mR, run, pmesh.shard_batch(d, mesh)
+
+    mR, run, dS = sharded(cards)
+    profiler.clear_spans()
+    with contextlib.ExitStack() as on:
+        for c in cards:
+            on.enter_context(profiler.tracing(c))
+        out = run(mR, dS, 2)                  # the captures
+        for c in cards:
+            torch.cuda.synchronize(c)
+            profiler.reset(c)
+        profiler.clear_spans()
+        out = run(mR, out, 20)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        counts = [profiler.counts(c)["step.count"] for c in cards]
+        rings = [profiler.ring(c) for c in cards]
+        spans = profiler.spans()
+    profiler.clear_spans()
+    assert torch.cuda.current_device() == 0
+    assert counts == [20] * n
+    for ring in rings:
+        assert len(ring) == 20
+        assert all(0 < r["position.start"] < r["integrate.end"]
+                   for r in ring)
+    assert [s.attrs["device"] for s in spans if s.name == "mesh.shard"] \
+        == [str(c) for c in cards]
+    for c, s in zip(cards, out.shards):
+        assert s.qpos.device == c
+    _, ref_run, ref_dS = sharded([cards[0]] * n)
+    ref = ref_run(mR.on(cards[0]), ref_dS, 22)
+    for s, r in zip(out.shards, ref.shards):
+        torch.testing.assert_close(s.qpos.to(r.qpos.device), r.qpos,
+                                   rtol=0, atol=5e-4)
+    # the reset: a cuda:0 batch into every card's shard, in place
+    ptrs = [s.qpos.data_ptr() for s in dS.shards]
+    pmesh.scatter(out.gather("cuda:0"), dS)
+    assert [s.qpos.data_ptr() for s in dS.shards] == ptrs
+    assert torch.equal(dS.gather("cuda:0").qvel, out.gather("cuda:0").qvel)
+
+
+@pytest.mark.cuda
 def test_rollout_collect_on_card_equals_rollout_traj(cuda_device):
     """The chunked rollout with its copies on a side stream into pinned
     buffers gives rollout_traj's trajectory bit for bit, and so does a

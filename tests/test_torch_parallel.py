@@ -5,6 +5,7 @@ of eight CPU devices, the JAX package's on its eight virtual devices
 (tests/conftest.py)."""
 
 import pathlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ from mujoco_sim_tpu.parallel import mesh as jmesh
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.models.convert import from_jax_data, from_jax_model
 from mujoco_sim_tpu_torch.parallel import egress, mesh as pmesh
+from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
 from mujoco_sim_tpu_torch.runtime import profiler as tprof
 from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
@@ -188,3 +190,120 @@ def test_make_batch_shards_every_leaf(box):
     assert torch.equal(dS.gather().qpos, plain.qpos)
     with pytest.raises(ValueError):
         pmesh.make_batch(mt, 6, mesh)
+
+
+# ------------------------------------------- the sharded manip bin, stirred
+
+STIR_STEPS = 50
+
+
+def _stir(phase):
+    """bench.py's stir: ctrl = sin(4 t + phase), one phase per env and
+    actuator."""
+    return lambda d: torch.sin(4.0 * d.time[:, None] + phase)
+
+
+@pytest.fixture(scope="module")
+def manip():
+    """manip_bin6 at 2 envs a shard over four CPU shards, each shard's
+    stir reading its own slice of the phases inside its own graph, and one
+    call of STIR_STEPS steps: (model, batch, phases, mesh, replicas,
+    shards, sharded phases, rollout, its result)."""
+    from mujoco_sim_tpu_torch.models.compile import load_model
+    m = engine.put_model(load_model(str(FIXTURES / "manip_bin6.xml")),
+                         torch.float64, "cpu")
+    d = engine.make_data(m, 8)
+    phase = 6.28 * torch.rand((8, m.nu), dtype=torch.float64,
+                              generator=torch.Generator().manual_seed(5))
+    mesh = pmesh.make_env_mesh(["cpu"] * 4)
+    mR = pmesh.replicate_model(m, mesh)
+    pS = pmesh.shard_batch(phase, mesh)
+    run = pmesh.make_sharded_rollout(
+        mR, mesh, ctrl_fn=[_stir(p) for p in pS.shards])
+    dS = pmesh.shard_batch(d, mesh)
+    return types.SimpleNamespace(m=m, d=d, phase=phase, mesh=mesh, mR=mR,
+                                 dS=dS, pS=pS, run=run,
+                                 out=run(mR, dS, STIR_STEPS))
+
+
+def test_sharded_stir_in_each_shards_graph_matches_unsharded(manip):
+    """The control computed inside each shard's graph from its own slice
+    of the phases steps every shard as its envs step in the whole batch
+    under rollout_eager with the same control."""
+    c = manip
+    assert [p.shape for p in c.pS.shards] == [(2, c.m.nu)] * 4
+    ref = rollout_eager(c.m, c.d, STIR_STEPS, ctrl_fn=_stir(c.phase))
+    got = c.out.gather()
+    assert float(ref.ncon.sum()) > 0            # contacts in the bin
+    for k in ("qpos", "qvel", "ctrl", "time"):
+        np.testing.assert_allclose(getattr(got, k).numpy(),
+                                   getattr(ref, k).numpy(), rtol=0,
+                                   atol=1e-12, err_msg=k)
+
+
+def test_sharded_rollout_takes_the_steps_at_call_time(manip):
+    """Calls of 25, 1 and 24 steps equal one call of 50, with one graph a
+    shard whatever the steps."""
+    c = manip
+    dS = c.dS
+    for n in (25, 1, 24):
+        dS = c.run(c.mR, dS, n)
+    for a, b in zip(dS.shards, c.out.shards):
+        for k in ("qpos", "qvel", "time", "qacc_warmstart"):
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert all(g.captures <= 1 for g in c.run.graphs)
+    assert c.run(c.mR, dS, 0) is dS
+    with pytest.raises(TypeError, match="steps"):
+        c.run(c.mR, dS)
+    with pytest.raises(ValueError, match="ctrl_fns"):
+        pmesh.make_sharded_rollout(c.mR, c.mesh, ctrl_fn=[None])
+
+
+def test_scatter_writes_into_the_existing_shards(manip):
+    """A reset writes a whole batch into the shards' own tensors: the
+    same tensors before and after, each holding its rows of the batch; a
+    tensor batch (the phases) scatters the same way."""
+    from mujoco_sim_tpu_torch.utils.struct import leaves_with_keys
+    c = manip
+    dS = pmesh.shard_batch(c.d, c.mesh)
+    before = [[id(v) for _, v in leaves_with_keys(s)] for s in dS.shards]
+    new = c.out.gather()
+    tprof.clear_spans()
+    with tprof.tracing():
+        assert pmesh.scatter(new, dS) is dS
+        pmesh.scatter(c.phase.flip(0), c.pS)
+    spans = [s for s in tprof.spans() if s.name == "mesh.scatter"]
+    tprof.clear_spans()
+    assert [[id(v) for _, v in leaves_with_keys(s)] for s in dS.shards] \
+        == before
+    for i, s in enumerate(dS.shards):
+        for (k, a), (_, b) in zip(leaves_with_keys(s),
+                                  leaves_with_keys(new)):
+            assert torch.equal(a, b[2 * i:2 * i + 2]), k
+    assert torch.equal(c.pS.gather(), c.phase.flip(0))
+    pmesh.scatter(c.phase, c.pS)
+    total = sum(v.nbytes for _, v in leaves_with_keys(new))
+    assert [s.attrs["bytes"] for s in spans] == [total, c.phase.nbytes]
+    with pytest.raises(ValueError, match="split"):
+        pmesh.scatter(c.phase[:6], c.pS)
+
+
+def test_sharded_rollout_spans(manip):
+    """A traced sharded call is the span mesh.sharded_rollout (shards,
+    envs, steps) over one mesh.shard a shard (its device), each over its
+    graph's load, replays and result."""
+    c = manip
+    tprof.clear_spans()
+    with tprof.tracing():
+        c.run(c.mR, c.out, 2)
+    spans = tprof.spans()
+    tprof.clear_spans()
+    (call,) = [s for s in spans if s.name == "mesh.sharded_rollout"]
+    assert call.parent is None
+    assert call.attrs == {"shards": 4, "envs": 8, "steps": 2}
+    kids = [s for s in spans if s.parent == call.id]
+    assert [s.name for s in kids] == ["mesh.shard"] * 4
+    assert [s.attrs["device"] for s in kids] == ["cpu"] * 4
+    for k in kids:
+        assert [s.name for s in spans if s.parent == k.id] == [
+            "graph.load", "graph.replay", "graph.replay", "graph.result"]
