@@ -49,7 +49,7 @@ with the count adds in it; no graph that is timed counts) and holds each
 count to the eager steps' over the same steps from the same state (the
 wrappers' counts and the card's), and prints both paths' env-steps/s
 (also over the same steps from the same state), host and device ms a
-step, device busy share and the graph's pool.  Builds the eight hand-written kernels from the
+step, device busy share and the graph's pool.  Builds the ten hand-written kernels from the
 checkout's own sources, holds each against its plain PyTorch twin, and
 checks the results.  Run from the root of a checkout, with one card:
 
@@ -239,15 +239,15 @@ def _ptxas(text):
 def build():
     from mujoco_sim_tpu_torch.ops import (chol, chol_factor, cuda_build,
                                           face_sat, hull_sat, loops,
-                                          manifold, mtv_query,
+                                          manifold, mtv_query, newton_solve,
                                           support_minmax, trace_stamp)
     t0 = time.perf_counter()
     info = cuda_build.build_all()
     for mod in (chol, chol_factor, hull_sat, mtv_query, support_minmax,
-                face_sat, loops, trace_stamp, manifold):
+                face_sat, loops, trace_stamp, manifold, newton_solve):
         mod._load()
-    if len(info) != 9:
-        raise AssertionError(f"expected nine kernels, built {sorted(info)}")
+    if len(info) != 10:
+        raise AssertionError(f"expected ten kernels, built {sorted(info)}")
     phase("build", wall_seconds=time.perf_counter() - t0,
           cuda_driver=loops.driver_version(), kernels={
         name: dict(source=os.path.relpath(cuda_build.source_path(name), ROOT),
@@ -1052,16 +1052,18 @@ def _settled(d, half_lo, z_hi, speed):
 def _reset_counts():
     from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
                                           hull_sat, manifold, mtv_query,
-                                          support_minmax, trace_stamp)
+                                          newton_solve, support_minmax,
+                                          trace_stamp)
     for mod in (chol, chol_factor, face_sat, hull_sat, mtv_query,
-                support_minmax, trace_stamp, manifold):
+                support_minmax, trace_stamp, manifold, newton_solve):
         mod.LAUNCHES = 0
 
 
 def _counts():
     from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
                                           hull_sat, manifold, mtv_query,
-                                          support_minmax, trace_stamp)
+                                          newton_solve, support_minmax,
+                                          trace_stamp)
     return dict(chol_solve=chol.LAUNCHES,
                 chol_factor=chol_factor.LAUNCHES,
                 face_sat_depth=face_sat.LAUNCHES,
@@ -1069,7 +1071,8 @@ def _counts():
                 mtv_query=mtv_query.LAUNCHES,
                 support_minmax=support_minmax.LAUNCHES,
                 trace_stamp=trace_stamp.LAUNCHES,
-                feature_clip=manifold.LAUNCHES)
+                feature_clip=manifold.LAUNCHES,
+                newton_solve=newton_solve.LAUNCHES)
 
 
 def _span_s(sp):
@@ -1137,6 +1140,7 @@ REPLAY_KERNELS = {
     "graph_loop": ("set_any",),
     "trace_stamp": ("trace_stamp_kernel",),
     "feature_clip": ("feature_clip_kernel",),
+    "newton_solve": ("newton_solve_kernel",),
 }
 _KERNEL_OF = {g: k for k, gs in REPLAY_KERNELS.items() for g in gs}
 _KERNEL_NAME = re.compile(r"(?<!\w)(" + "|".join(_KERNEL_OF) + r")(?!\w)")
@@ -1248,7 +1252,8 @@ def hold_replay_counts(what, replay, eager, nsteps, eag=None):
     (LAUNCHES) over the eager steps and the card's count over them: the
     graph is bit-equal to eager, so the same data goes through the same
     loops, however often a WHILE body runs.  The WHILE nodes' predicate
-    (graph_loop) has no eager launch and must only have run.  The counted
+    (graph_loop) has no eager launch and must only have run, unless the
+    Newton kernel ran the step's solver loop in its place.  The counted
     graph is dropped and the path's graph captured again without counts,
     as the phase had it; that recapture's pool MB and seconds (_captures)
     go into ``captures``, one pair a graph.
@@ -1289,9 +1294,9 @@ def hold_replay_counts(what, replay, eager, nsteps, eag=None):
     if bad:
         raise AssertionError(f"{what}: hand-written kernels in {nsteps} "
                              f"replays vs {nsteps} eager steps: {bad}")
-    if on_card["graph_loop"] == 0:
-        raise AssertionError(f"{what}: no WHILE predicate ran in the "
-                             "replays")
+    if on_card["graph_loop"] == 0 and on_card["newton_solve"] == 0:
+        raise AssertionError(f"{what}: neither a WHILE predicate nor the "
+                             "Newton kernel ran in the replays")
     rep["counts"] = on_card
     rep["captures"] = caps
     # a kernel's device ms a launch: the mean of its launches that the
@@ -1315,7 +1320,8 @@ def _replay_record(rep, nsteps):
                 held="counted on the card in a capture of the same step "
                      "with the count adds in it, equal to the eager steps' "
                      "launches over the same steps from the same state, "
-                     "which its replays equal bit for bit (graph_loop: > 0)",
+                     "which its replays equal bit for bit (graph_loop or "
+                     "newton_solve: > 0)",
                 device_ms_per_launch=rep["eager_ms_per_launch"],
                 device_ms_from="the eager steps' trace (same launches, "
                                "same inputs)")
@@ -1343,8 +1349,8 @@ def _data_of(x):
 
 def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
                   card, band=0.0, band_cause=None, eager_steps=10,
-                  need=("chol_solve", "graph_loop"), count_steps=3, then=0,
-                  **extra):
+                  need=("chol_solve",), count_steps=3, then=0,
+                  solve_model=None, **extra):
     """A phase's path through its step graph: run(x, n) is the entry point
     a user calls (n steps from x, one CUDA graph a step, captured on its
     first call and replayed in place; graph_of() is its StepGraph) and
@@ -1359,7 +1365,10 @@ def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
     syncs of an eager step; device time and busy share; the graph's pool;
     and the hand-written kernels of count_steps replays from the graph's
     final state held to as many eager steps from eager_final, the same
-    state (hold_replay_counts).  Every eager step runs before the
+    state (hold_replay_counts).  ``solve_model`` (the phase's model) adds
+    the Newton solve's launches to ``need``: the newton_solve kernel's
+    where the model takes it, else the lockstep loops' WHILE predicate.
+    Every eager step runs before the
     capture, and no graph that is timed counts launches.  The graph's
     throughput is timed on a rollout of replays only: from x0 over nsteps
     again, or ``then`` steps from the compared final state onwards.
@@ -1391,6 +1400,8 @@ def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
     pool_mb, capture_s = (sum(c) for c in zip(*caps))
     counts = dict(_counts(), graph_loop=loops.LAUNCHES)
     GRAPH_COUNTS[what] = counts
+    if solve_model is not None:
+        need = tuple(dict.fromkeys(tuple(need) + _solve_need(solve_model)))
     missing = [k_ for k_ in need if counts[k_] == 0]
     if missing:
         raise AssertionError(f"{what}: {missing} never launched on the "
@@ -1450,6 +1461,15 @@ def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
     return dict(capture=counts, replay=rep, final=final, line=out)
 
 
+def _solve_need(m) -> tuple:
+    """The launch a step of model m's constraint solve makes: the Newton
+    kernel's where ops/solver.takes_kernel holds, else the WHILE
+    predicate of the lockstep loops."""
+    from mujoco_sim_tpu_torch.ops import solver
+    return (("newton_solve",) if solver.takes_kernel(m, m.device)
+            else ("graph_loop",))
+
+
 def graph_vs_eager(what, m, d0, nsteps, eager_final, card, ctrl_fn=None,
                    **kw):
     """path_vs_eager for mst.rollout (the batched rollout a user calls)
@@ -1460,7 +1480,8 @@ def graph_vs_eager(what, m, d0, nsteps, eager_final, card, ctrl_fn=None,
     return path_vs_eager(
         what, lambda d, n: mst.rollout(m, d, n, ctrl_fn=ctrl_fn),
         lambda d, n: rollout_eager(m, d, n, ctrl_fn=ctrl_fn),
-        lambda: step_graph(ctrl_fn), d0, nsteps, eager_final, card, **kw)
+        lambda: step_graph(ctrl_fn), d0, nsteps, eager_final, card,
+        solve_model=m, **kw)
 
 
 def box_main_path(card):
@@ -1483,14 +1504,16 @@ def box_main_path(card):
     d = rollout_eager(m, d0, nsteps)
     torch.cuda.synchronize()
     launches = _counts()["chol_solve"]
+    newton = _counts()["newton_solve"]
     graph_vs_eager("box", m, d0, nsteps, d, card)
 
     bad = _float_leaves_finite(d)
     if bad:
         raise AssertionError(f"non-finite leaves after the rollout: {bad}")
-    if launches <= 2 * nsteps:
-        raise AssertionError(f"chol_solve ran {launches} times in {nsteps} "
-                             "steps: the Newton solver never reached it")
+    if launches < 2 * nsteps or newton != nsteps:
+        raise AssertionError(f"chol_solve ran {launches} times, the Newton "
+                             f"kernel {newton} times in {nsteps} steps (two "
+                             "solves and one Newton launch a step)")
     if not bool((d.qLD == 0).all()):
         raise AssertionError("qLD must stay zero on the kernel path")
 
@@ -1680,18 +1703,21 @@ class _Probe:
     functions, add no host round trip, and are taken off again: how many
     deep-pair slots were enabled, the largest ncon, and copies of the
     kernels' inputs (the SPD solves, the face SAT, the exact query, the
-    feature clip) at a few steps. With ``rows`` (env indices) only those
+    feature clip, the Newton solve) at a few steps. With ``rows`` (env indices) only those
     envs' inputs are copied, beside the same envs' rows of what the launch
     on the whole batch returned (``*_out``), the whole batch's shapes
     (``*_full``) and, for the exact query, the live lanes of each of its
     rounds over the whole batch: a batch too large to copy is held to the
-    twins on its first and last envs.
+    twins on its first and last envs; the Newton kernel's launch on the
+    whole batch is summed there too (``newton_full``: _newton_counts).
     """
 
     def __init__(self, capture_calls=(), rows=None):
         from mujoco_sim_tpu_torch.ops import (chol, collision, hull_sat,
-                                              manifold, mtv_query)
-        self.mods = (chol, collision, hull_sat, manifold, mtv_query)
+                                              manifold, mtv_query,
+                                              newton_solve)
+        self.mods = (chol, collision, hull_sat, manifold, mtv_query,
+                     newton_solve)
         self.enabled = torch.zeros((), dtype=torch.long, device="cuda")
         self.ncon_max = torch.zeros((), dtype=torch.int32, device="cuda")
         self.capture_calls = set(capture_calls)
@@ -1701,6 +1727,7 @@ class _Probe:
         self.sat_out, self.mtv_out, self.chol_out = [], [], []
         self.clip_out = []
         self.sat_full, self.mtv_full = [], []
+        self.newton, self.newton_out, self.newton_full = [], [], []
 
     def _take(self, x, nenv, rows=None):
         """A copy of x, of its rows' entries where it has the env axis."""
@@ -1715,11 +1742,14 @@ class _Probe:
         return tuple(self._take(o, nenv, rows) for o in out)
 
     def __enter__(self):
-        chol, collision, hull_sat, manifold, mtv_query = self.mods
+        chol, collision, hull_sat, manifold, mtv_query, newton_solve = (
+            self.mods)
         self.saved = (chol.chol_solve, collision.collision,
                       hull_sat.hull_ref_face_depth_cuda,
-                      manifold.exact_pair_contacts, manifold.feature_clip)
-        real_chol, real_col, real_sat, real_epc, real_clip = self.saved
+                      manifold.exact_pair_contacts, manifold.feature_clip,
+                      newton_solve.newton_solve_cuda)
+        (real_chol, real_col, real_sat, real_epc, real_clip,
+         real_newton) = self.saved
         some = self.rows is not None
 
         def solve(A, b):
@@ -1793,18 +1823,32 @@ class _Probe:
                     self.clip_out.append(self._outs(out, n, rows))
             return out
 
+        def newton(*a):
+            out = real_newton(*a)
+            if self.calls in self.capture_calls:
+                n = a[0].shape[0]
+                self.newton.append(dict(zip(NEWTON_ARGS, (
+                    self._take(x, n) for x in a))))
+                if some:
+                    self.newton_out.append(self._outs(out, n))
+                    self.newton_full.append(_newton_counts(
+                        dict(zip(NEWTON_ARGS, a)), out))
+            return out
+
         chol.chol_solve = solve
         collision.collision = col
         hull_sat.hull_ref_face_depth_cuda = sat
         manifold.exact_pair_contacts = epc
         manifold.feature_clip = clip
+        newton_solve.newton_solve_cuda = newton
         return self
 
     def __exit__(self, *exc):
-        chol, collision, hull_sat, manifold, _ = self.mods
+        chol, collision, hull_sat, manifold, _, newton_solve = self.mods
         (chol.chol_solve, collision.collision,
          hull_sat.hull_ref_face_depth_cuda,
-         manifold.exact_pair_contacts, manifold.feature_clip) = self.saved
+         manifold.exact_pair_contacts, manifold.feature_clip,
+         newton_solve.newton_solve_cuda) = self.saved
 
 
 def _objects_in_bin(d):
@@ -1978,6 +2022,9 @@ def manip_kernels(probe):
     timing["feature_clip"] = _clip_record(
         max(probe.clip, key=lambda c: int(c["enabled"].sum())),
         "manip capture")
+    if not probe.newton:
+        raise AssertionError("the manip rollout gave no Newton-kernel input")
+    timing["newton_solve"] = _newton_record(probe.newton, "manip capture")
     # support_minmax at the staged query's two widths on the same verts
     rng = np.random.default_rng(5)
     for C in (2 * F, K * K):
@@ -2006,6 +2053,7 @@ def manip_kernels(probe):
     phase("manip_kernels", captured_sat_calls=len(probe.sat),
           captured_mtv_calls=len(probe.mtv), live_deep_slots_checked=live,
           feature_clip_vs_twin=clip_held,
+          newton_solve_vs_lockstep=timing["newton_solve"]["vs_lockstep"],
           max_abs_err=err, accepted_near_ties=ties, timing=timing,
           peaks="3.35 TB/s, 67 TFLOP/s f32")
     return err, timing
@@ -2832,7 +2880,8 @@ def control_main_path(card):
     ce = eager((d, st), nsteps)
     res = path_vs_eager("control", chain(mst.step_with_control), eager,
                         lambda: graph.cached("control", ctrl, None),
-                        (d, st), nsteps, ce, card)
+                        (d, st), nsteps, ce, card, solve_model=m,
+                        need=("chol_solve", "graph_loop"))
     del ce
     counts = res["capture"]
     d, st = res["final"]
@@ -2957,7 +3006,7 @@ def mobile_main_path(card):
     res = path_vs_eager(
         "mobile", lambda c, k: pmesh.scan_reduced(step, c, k), eager,
         lambda: graph.cached("scan", step, None), c0, nsteps, ce, card,
-        launches_eager=eager_counts)
+        solve_model=m, launches_eager=eager_counts)
     del ce
     cg = res["final"]
     d = cg[0]
@@ -3030,6 +3079,187 @@ def mobile_main_path(card):
           card=card)
 
 
+# newton_solve_cuda's arguments, in order
+NEWTON_ARGS = ("M", "a_smooth", "J", "D", "efc_type", "floss", "floss_active",
+               "a", "x", "cost", "tolerance", "ls_tolerance", "iterations",
+               "ls_iterations")
+# the Newton kernel against the lockstep loops (ops/solver._newton_lockstep)
+# on the same inputs, the card tests' limits (tests/test_torch_cuda.py):
+# the kernel's objective no higher than the loops' but by NEWTON_OBJ_TOL of
+# |objective| + 1; qacc within NEWTON_QACC_Q99 of each env's largest (+1)
+# at the 99th percentile and NEWTON_QACC_MAX at most; each env's iteration
+# count within NEWTON_ITER_MOST, at most NEWTON_ITER_SHARE of the envs off
+# by 2 or more and the mean counts within 3% (the stop test sits on
+# float32 rounding, ROADMAP A.3)
+NEWTON_OBJ_TOL = 2e-6
+NEWTON_QACC_Q99 = 3e-3
+NEWTON_QACC_MAX = 5e-2
+NEWTON_ITER_MOST = 4
+NEWTON_ITER_SHARE = 0.08
+
+
+def _newton_rows(b, dtype=torch.float32):
+    """The rows' type and friction loss of captured inputs ``b``, as
+    ops/solver reads them off a Data."""
+    return types.SimpleNamespace(efc_type=b["efc_type"],
+                                 efc_frictionloss=b["floss"].to(dtype),
+                                 efc_floss_active=b["floss_active"])
+
+
+def _newton_lockstep(b, dtype=torch.float32):
+    """ops/solver._newton_lockstep on captured inputs ``b`` in ``dtype``
+    (float64 on the CPU: the card's SPD solve is float32 only): (a, x, each
+    env's iterations) on the inputs' device."""
+    from mujoco_sim_tpu_torch.ops import solver
+    dev = b["a"].device
+    if dtype == torch.float64:
+        b = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+             for k, v in b.items()}
+    opt = types.SimpleNamespace(
+        tolerance=b["tolerance"], ls_tolerance=b["ls_tolerance"],
+        solver_iterations=b["iterations"], ls_iterations=b["ls_iterations"])
+    M, a_s, J, D, a, x, cost = (b[k].to(dtype) for k in (
+        "M", "a_smooth", "J", "D", "a", "x", "cost"))
+    out = solver._newton_lockstep(opt, _newton_rows(b, dtype), M, a_s, J, D,
+                                  a, x, cost)
+    return tuple(t.to(dev) for t in out)
+
+
+def _newton_objective(b, a):
+    """The solve's objective at qacc ``a`` in float64: aref from the carry
+    (J a - x), so every answer is held on the same problem."""
+    from mujoco_sim_tpu_torch.ops import solver
+    J, M = b["J"].double(), b["M"].double()
+    mv = lambda A, v: (A @ v[..., None])[..., 0]
+    aref = mv(J, b["a"].double()) - b["x"].double()
+    a = a.double()
+    da = a - b["a_smooth"].double()
+    return (0.5 * (da * mv(M, da)).sum(-1) + solver._row_cost(
+        _newton_rows(b, torch.float64), mv(J, a) - aref,
+        b["D"].double()).sum(-1))
+
+
+def _newton_counts(b, out):
+    """The work of one launch's answer ``out`` on inputs ``b`` (tensors on
+    the card, the whole batch): envs, nv, nefc, the Newton iterations and
+    line-search steps summed over the envs, and the rows of the Hessian
+    sum over the iterations (each env's iterations times its rows with
+    curvature at its answer)."""
+    from mujoco_sim_tpu_torch.ops import solver
+    _, x, iters, ls = out
+    _, curv = solver._row_force_and_curv(_newton_rows(b), x, b["D"])
+    hess = (iters.long() * (curv != 0).sum(-1)).sum()
+    B, nefc, nv = b["J"].shape
+    return dict(envs=B, nv=nv, nefc=nefc, iters=int(iters.sum()),
+                ls_steps=int(ls.sum()), hess_rows=int(hess))
+
+
+def _newton_work(c):
+    """(bytes, flops) the Newton kernel must move and do for the counts
+    ``c`` (_newton_counts): each env reads M, J, a_smooth, the carry and
+    the rows' data once and writes a, x and two counts; an iteration does
+    J' f and J p (2 nefc nv each), M (a - a_smooth), M p and the two
+    substitutions (~6 nv^2), the factor (nv^3 / 3) and the Hessian's lower
+    triangle over its rows with curvature (nv (nv + 1) a row); a line-search
+    step ~8 flops a row."""
+    B, nv, nefc = c["envs"], c["nv"], c["nefc"]
+    nbytes = B * (4 * (nv * nv + nefc * nv + 2 * nv + 3 * nefc + 1)
+                  + 5 * nefc + 4 * (nv + nefc) + 8)
+    flops = (c["iters"] * (4 * nefc * nv + 6 * nv * nv + nv ** 3 / 3)
+             + c["hess_rows"] * nv * (nv + 1) + c["ls_steps"] * 8 * nefc)
+    return nbytes, flops
+
+
+def compare_newton(caps, what, gots=None):
+    """The Newton kernel against the lockstep loops on the captured inputs
+    ``caps`` (dicts by NEWTON_ARGS; ``gots``: the kernel's rows of the
+    launches on the whole batch, else it is launched here), held to the
+    NEWTON_* limits: the objective, qacc and the line-search steps (at
+    least one an iteration) on every capture, the iteration counts over
+    the envs of all captures.  The lockstep loops in float64 on the same
+    inputs are the third witness: how far each float32 path's objective
+    and iteration counts lie from theirs is reported, not held."""
+    from mujoco_sim_tpu_torch.ops import newton_solve
+    gots = gots or [None] * len(caps)
+    ik_all, ip_all = [], []
+    gap = q99 = qmax = 0.0
+    w = dict(kernel_obj_gap=0.0, lockstep_obj_gap=0.0)
+    dev64 = dict(kernel=[], lockstep=[])
+    for b, got in zip(caps, gots):
+        ak, _, ik, lk = got or newton_solve.newton_solve_cuda(
+            *[b[k] for k in NEWTON_ARGS])
+        ap, _, ip = _newton_lockstep(b)
+        a64, _, i64 = _newton_lockstep(b, torch.float64)
+        if not bool(torch.isfinite(ak).all()):
+            raise AssertionError(f"newton_solve {what}: non-finite qacc")
+        if not bool((lk >= ik).all()):
+            raise AssertionError(f"newton_solve {what}: an iteration with no "
+                                 "line-search step")
+        ok_, op_, o64 = (_newton_objective(b, a_) for a_ in (ak, ap, a64))
+        rel = lambda o: (o - o64) / (o64.abs() + 1)
+        g = float(((ok_ - op_) / (op_.abs() + 1)).max())
+        if not g <= NEWTON_OBJ_TOL:
+            raise AssertionError(f"newton_solve {what}: objective {g:.3g} "
+                                 "above the lockstep loops'")
+        rq = ((ak - ap).abs().amax(-1) / (ap.abs().amax(-1) + 1.0)).double()
+        e99, emax = float(torch.quantile(rq, 0.99)), float(rq.max())
+        if not (e99 <= NEWTON_QACC_Q99 and emax <= NEWTON_QACC_MAX):
+            raise AssertionError(f"newton_solve {what}: qacc q99 {e99:.3g}, "
+                                 f"max {emax:.3g} of each env's largest")
+        gap, q99, qmax = max(gap, g), max(q99, e99), max(qmax, emax)
+        w["kernel_obj_gap"] = max(w["kernel_obj_gap"], float(rel(ok_).max()))
+        w["lockstep_obj_gap"] = max(w["lockstep_obj_gap"],
+                                    float(rel(op_).max()))
+        ik_all.append(ik.cpu())
+        ip_all.append(ip.cpu())
+        dev64["kernel"].append((ik - i64).abs().cpu())
+        dev64["lockstep"].append((ip - i64).abs().cpu())
+    ik, ip = torch.cat(ik_all), torch.cat(ip_all)
+    di = (ik - ip).abs()
+    mk, mp = float(ik.float().mean()), float(ip.float().mean())
+    off2 = float((di >= 2).float().mean())
+    if not (int(di.max()) <= NEWTON_ITER_MOST and off2 <= NEWTON_ITER_SHARE
+            and abs(mk - mp) <= 0.03 * mp):
+        raise AssertionError(
+            f"newton_solve {what}: iterations off by up to {int(di.max())}, "
+            f"{off2:.3g} of envs by 2 or more, means {mk:.3f} / {mp:.3f}")
+    for k, v in dev64.items():
+        v = torch.cat(v).float()
+        w[f"{k}_iter_dev_mean"] = float(v.mean())
+        w[f"{k}_iter_dev_2_share"] = float((v >= 2).float().mean())
+    return dict(captures=len(caps), envs=len(ik), obj_gap=gap,
+                qacc_rel_q99=q99, qacc_rel_max=qmax,
+                iters_mean=mk, lockstep_iters_mean=mp,
+                iters_off=dict((str(k), int((di == k).sum()))
+                               for k in range(int(di.max()) + 1)),
+                iters_off_2_share=off2, vs_f64_lockstep=w,
+                limits=dict(obj=NEWTON_OBJ_TOL, qacc_q99=NEWTON_QACC_Q99,
+                            qacc_max=NEWTON_QACC_MAX,
+                            iters_most=NEWTON_ITER_MOST,
+                            iters_2_share=NEWTON_ITER_SHARE))
+
+
+def _newton_record(caps, what):
+    """The Newton kernel at captured inputs: held to the lockstep loops
+    over every capture (compare_newton), then timed at the last capture
+    beside the lockstep loops (eager: their WHILE predicates are read on
+    the host) and the bound of the work its own iterations there took."""
+    from mujoco_sim_tpu_torch.ops import newton_solve
+    held = compare_newton(caps, what)
+    b = caps[-1]
+    args = [b[k] for k in NEWTON_ARGS]
+    c = _newton_counts(b, newton_solve.newton_solve_cuda(*args))
+    bound, by = _bound(*_newton_work(c))
+    return dict(c, vs_lockstep=held,
+                ms=_median_ms(lambda: newton_solve.newton_solve_cuda(*args)),
+                device_ms=_graph_ms(lambda: newton_solve.newton_solve_cuda(
+                    *args)),
+                plain_ms=_median_ms(lambda: _newton_lockstep(b), reps=5),
+                plain_timed="the lockstep loops eager, predicates on the host",
+                bound_ms=bound, bound_by=by)
+
+
+
 # --------------------------------- manip at scale (BASELINE config 5)
 
 # bench.py's manip_8k cell (8192 envs, 100 steps) and BASELINE config 5's
@@ -3058,7 +3288,8 @@ def _scale_bounds(m, nenv, probe, what):
     face SAT's calls at the shapes the probe kept, the exact query at the
     live lanes of each round over the whole batch (the probe's first
     capture), the feature clip at its lanes and live lanes there, the
-    WHILE predicate on (nenv,) masks."""
+    Newton kernel at the iterations its launch on the whole batch ran
+    there (_newton_work), the WHILE predicate on (nenv,) masks."""
     from mujoco_sim_tpu_torch.ops import loops, mtv_query
     per, ms = REPLAY_COUNTS[what], REPLAY_MS[what]
     out = {}
@@ -3095,6 +3326,11 @@ def _scale_bounds(m, nenv, probe, what):
                                c["nfA"].shape[-2]))
     row("feature_clip", eager_ms("feature_clip"), b, by)
     out["feature_clip"].update(lanes=lanes, live=info["live"])
+    c = probe.newton_full[0]
+    b, by = _bound(*_newton_work(c))
+    row("newton_solve", eager_ms("newton_solve"), per["newton_solve"] * b,
+        by)
+    out["newton_solve"].update(c)
     mask = torch.rand(nenv, device=m.device) < 0.01
     b, by = _bound(nenv + 4, nenv)
     row("graph_loop", _graph_ms(lambda: loops.any_cuda(mask)),
@@ -3145,7 +3381,7 @@ def manip_scale_size(m, nenv, nsteps, card):
               "mtv_query", "feature_clip"))
     del eager_final
     for k in ("chol_solve", "hull_ref_face_depth", "mtv_query",
-              "graph_loop", "feature_clip"):
+              "graph_loop", "feature_clip", "newton_solve"):
         if not REPLAY_COUNTS[what][k]:
             raise AssertionError(f"{what}: {k} did not run in a replay")
     d50 = res["final"] if then else mst.rollout(m, d0, SCALE_BAND_STEPS,
@@ -3165,6 +3401,10 @@ def manip_scale_size(m, nenv, nsteps, card):
     clip_held = _clip_summary([
         compare_clip(c, f"{what} capture", got)
         for c, got in zip(probe.clip, probe.clip_out)])
+    if not probe.newton:
+        raise AssertionError(f"{what}: no Newton-kernel input captured")
+    newton_held = compare_newton(probe.newton, f"{what} capture",
+                                 probe.newton_out)
     # the first 1024 envs against the 1024-env batch from the same start
     first = slice(0, MANIP_NENV)
     d0s = mst.make_data(m, MANIP_NENV)
@@ -3208,7 +3448,8 @@ def manip_scale_size(m, nenv, nsteps, card):
                  "(and envs with a live deep slot for the exact query), "
                  "rows of the launches on the whole batch",
             **held, mtv_query_max_abs_err=mtv_err, mtv_ties=mtv_ties,
-            mtv_live_lanes=live, feature_clip=clip_held),
+            mtv_live_lanes=live, feature_clip=clip_held,
+            newton_solve=newton_held),
         first_1024=dict(after_one_step=dev_one, tol=SHARD_TOL,
                         after_band_steps=band,
                         required_fraction=MANIP_CROSS_FRACTION),
@@ -4322,6 +4563,27 @@ def main(argv):
              device_ms=ts_t["device_ms"], plain_ms=ts_t["plain_ms"],
              bound_ms=ts_t["bound_ms"], bound_by=ts_t["bound_by"],
              library_ms=None),
+        # the Newton loop of a pyramidal model's solve, one launch a step;
+        # the JAX package runs that loop as XLA ops, no TPU kernel.  Held to
+        # the lockstep loops and timed at the manip rollout's captures
+        dict(name="newton_solve", route="cuda",
+             source=src + "newton_solve.cu", replaces=None,
+             launches=GRAPH_COUNTS["manip"]["newton_solve"],
+             launches_eager=counts["newton_solve"],
+             launches_box_path=GRAPH_COUNTS["box"]["newton_solve"],
+             launches_terrain_path=tcounts["newton_solve"],
+             launches_precise_path=pcounts["newton_solve"],
+             launches_pile_path=pile_counts["newton_solve"],
+             vs_lockstep=t["newton_solve"]["vs_lockstep"],
+             max_abs_err=None, envs=t["newton_solve"]["envs"],
+             iters=t["newton_solve"]["iters"],
+             ls_steps=t["newton_solve"]["ls_steps"],
+             ms=t["newton_solve"]["ms"],
+             device_ms=t["newton_solve"]["device_ms"],
+             plain_ms=t["newton_solve"]["plain_ms"],
+             plain_timed=t["newton_solve"]["plain_timed"],
+             bound_ms=t["newton_solve"]["bound_ms"],
+             bound_by=t["newton_solve"]["bound_by"], library_ms=None),
     ]
     # by path: the wrappers' counts over each graph main path (its warm-up
     # call and its capture; ``launches`` is the manip path's, or the

@@ -38,6 +38,8 @@ _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # turn an exact tie of the twin into a pick of the other index; without
 # contraction the kernels round like the twins.  chol_solve compares no
 # floats and keeps FMA, and so does chol_factor, which shares its code.
+# newton_solve rounds its elementwise terms as the plain solver's do (its
+# sums and the shared factor use explicit fmaf).
 _NO_FMA = ("-fmad=false",)
 
 # kernel name -> (source file, extra flags)
@@ -51,6 +53,7 @@ KERNELS = {
     "graph_loop": ("graph_loop.cu", ()),
     "trace_stamp": ("trace_stamp.cu", ()),
     "feature_clip": ("feature_clip.cu", _NO_FMA),
+    "newton_solve": ("newton_solve.cu", _NO_FMA),
 }
 HEADERS = ("support.cuh", "chol_factor.cuh", "async_copy.cuh", "face_sat.cuh")
 

@@ -29,6 +29,13 @@ loop is a conditional WHILE node whose predicate is reduced on the card,
 the line search's node nested in the Newton node's body, and the step
 syncs nowhere.  The elliptic line search's bracket expansion has a fixed
 cap of 8 doublings and runs all 8 masked, as straight-line code.
+
+On the card a pyramidal or frictionless model with nv <= 64
+(``takes_kernel``) takes one launch of csrc/newton_solve.cu
+for its Newton loop instead: each env's iterations and line searches to
+its own stop, an env a block.  Those lockstep loops
+(``_newton_lockstep``) are its plain twin, which the CPU, elliptic models
+and nv > 64 run; the init and the forces from the final qacc stay here.
 """
 
 from __future__ import annotations
@@ -38,12 +45,39 @@ import torch
 
 from mujoco_sim_tpu_torch.models.model import (Model, Data, DisableBit,
                                                 ConeType, contact_rows_per)
-from mujoco_sim_tpu_torch.ops import chol, loops
+from mujoco_sim_tpu_torch.ops import chol, loops, newton_solve
+from mujoco_sim_tpu_torch.runtime import profiler
 
 
 def _is_elliptic(m: Model) -> bool:
     return (m.opt.cone == int(ConeType.ELLIPTIC) and m.ncon_max > 0
             and m.max_condim > 1)
+
+
+def takes_kernel(m: Model, device) -> bool:
+    """Which Newton loop ``solve`` runs: the kernel (csrc/newton_solve.cu)
+    for a pyramidal or frictionless model with nv <= 64 on a CUDA device;
+    elliptic cones (their zone costs and bracket search), nv > 64 and the
+    CPU keep the lockstep loops."""
+    return (torch.device(device).type == "cuda" and not _is_elliptic(m)
+            and m.nv <= newton_solve.MAX_NV)
+
+
+def newton_kernel(m: Model, d: Data, D, a, x, cost):
+    """The Newton loop of ``solve`` for model ``m`` on the kernel, from the
+    carry (a, x = J a - aref, cost) after the init, D the rows' weights:
+    (a, x, each env's iterations, each env's line-search steps summed).
+    Raises where ``takes_kernel`` does not hold."""
+    if not takes_kernel(m, a.device):
+        raise ValueError(
+            f"newton_kernel: the kernel takes a pyramidal or frictionless "
+            f"model with nv <= {newton_solve.MAX_NV} on a CUDA device "
+            f"(nv={m.nv}, cone={m.opt.cone}, device {a.device})")
+    o = m.opt
+    return newton_solve.newton_solve_cuda(
+        d.qM, d.qacc_smooth, d.efc_J, D, d.efc_type, d.efc_frictionloss,
+        d.efc_floss_active, a, x, cost, o.tolerance, o.ls_tolerance,
+        o.solver_iterations, o.ls_iterations)
 
 
 def _cone_plan_np(m: Model) -> dict:
@@ -191,18 +225,26 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum(-1)
 
 
+def _rowcost_sum(d: Data, x: torch.Tensor, D: torch.Tensor, cone=None,
+                 crows=None) -> torch.Tensor:
+    """Summed row cost per env at jar x, the elliptic cone blocks'
+    included where ``cone`` is given."""
+    c = _row_cost(d, x, D).sum(-1)
+    if cone is not None:
+        cc, _, _ = cone.terms(x[:, crows], need_hess=False)
+        c = c + cc.sum(-1)
+    return c
+
+
 def solve(m: Model, d: Data) -> Data:
     dtype = d.qpos.dtype
     M = d.qM
     a_smooth = d.qacc_smooth
     J = d.efc_J
-    JT = J.transpose(-1, -2)
     aref = d.efc_aref
-    nv = M.shape[-1]
-    eye = torch.eye(nv, dtype=dtype, device=M.device)
 
-    elliptic = _is_elliptic(m)
-    if elliptic:
+    cone = crows = None
+    if _is_elliptic(m):
         cplan = _cone_plan(m, dtype)
         crows = cplan["crows"]
         D = torch.where(cplan["noncone"], d.efc_D, 0.0)
@@ -215,16 +257,51 @@ def solve(m: Model, d: Data) -> Data:
     # guard: warmstart of wrong scale falls back to smooth (per env)
     a0 = torch.where(torch.isnan(a0).any(-1, keepdim=True), a_smooth, a0)
 
+    # best-of-two init like the reference solver: warmstart vs smooth
+    x_warm = _mv(J, a0) - aref
+    x_smooth = _mv(J, a_smooth) - aref
+    da_w = a0 - a_smooth
+    c_warm = (0.5 * _dot(da_w, _mv(M, da_w))
+              + _rowcost_sum(d, x_warm, D, cone, crows))
+    c_smooth = _rowcost_sum(d, x_smooth, D, cone, crows)
+    take_warm = c_warm <= c_smooth
+    a = torch.where(take_warm[:, None], a0, a_smooth)
+    x = torch.where(take_warm[:, None], x_warm, x_smooth)
+    cost = torch.where(take_warm, c_warm, c_smooth)
+
+    if takes_kernel(m, a.device):
+        # each env's iterations and line searches in one kernel launch
+        a, x, iters, ls_iters = newton_kernel(m, d, D, a, x, cost)
+        profiler.count_loop("newton", iters)
+        profiler.count_loop("linesearch", ls_iters)
+    else:
+        a, x, _ = _newton_lockstep(m.opt, d, M, a_smooth, J, D, a, x, cost,
+                                   cone, crows)
+
+    efc_force, qfrc_constraint = constraint_force_from_qacc(m, d, a, jar=x)
+    return d.replace(qacc=a, qfrc_constraint=qfrc_constraint,
+                     efc_force=efc_force)
+
+
+def _newton_lockstep(opt, d, M, a_smooth, J, D, a, x, cost, cone=None,
+                     crows=None):
+    """The Newton iterations from the carry (a, x = J a - aref, cost) as
+    batched while loops over the env axis (every env's body runs while any
+    env is live): the plain twin of csrc/newton_solve.cu, and the path of
+    the CPU, of elliptic models (``cone``, ``crows``: their cone blocks)
+    and of nv > 64.  ``opt``: the solver options (tolerance, ls_tolerance,
+    solver_iterations, ls_iterations); ``d``: the rows' efc_type,
+    efc_frictionloss and efc_floss_active.  Returns (a, x, each env's
+    iteration count)."""
+    dtype = a.dtype
+    JT = J.transpose(-1, -2)
+    nv = M.shape[-1]
+    eye = torch.eye(nv, dtype=dtype, device=M.device)
+    elliptic = cone is not None
+
     # jar x = J a - aref is CARRIED through the Newton loop and updated as
     # x += alpha * Jp (exact: J(a + alpha p) - aref = x + alpha Jp), so the
     # cost evaluations are (nefc,) elementwise and never re-form J @ a.
-    def rowcost_sum(x):
-        c = _row_cost(d, x, D).sum(-1)
-        if elliptic:
-            cc, _, _ = cone.terms(x[:, crows], need_hess=False)
-            c = c + cc.sum(-1)
-        return c
-
     def grad_hess(a, x):
         f, curv = _row_force_and_curv(d, x, D)
         Mda = _mv(M, a - a_smooth)
@@ -249,7 +326,8 @@ def solve(m: Model, d: Data) -> Data:
 
         def phi_cost(alpha):
             return (c0M + alpha * pM_da + 0.5 * alpha * alpha * pMp
-                    + rowcost_sum(x0 + alpha[:, None] * Jp))
+                    + _rowcost_sum(d, x0 + alpha[:, None] * Jp, D, cone,
+                                   crows))
 
         if elliptic:
             Jpc = Jp[:, crows]              # (B, K, rp)
@@ -274,11 +352,11 @@ def solve(m: Model, d: Data) -> Data:
         d1_0, _ = phi_d(torch.zeros_like(pMp), need_d2=False)
         # stop when the slope has dropped to ls_tolerance of its initial
         # magnitude (the analogue of MuJoCo's ls_tolerance)
-        gtol = m.opt.ls_tolerance * torch.clamp(d1_0.abs(), min=1e-8)
+        gtol = opt.ls_tolerance * torch.clamp(d1_0.abs(), min=1e-8)
         curv_floor = 1e-8 * torch.clamp(pMp, min=1e-12)
 
         def c1(it, d1):
-            return ((it < m.opt.ls_iterations) & (d1.abs() > gtol)
+            return ((it < opt.ls_iterations) & (d1.abs() > gtol)
                     & torch.isfinite(d1))
 
         if elliptic:
@@ -327,39 +405,25 @@ def solve(m: Model, d: Data) -> Data:
         a_new = a + alpha_eff[:, None] * p
         x_new = x + alpha_eff[:, None] * Jp
         improved = prev_cost - new_cost
-        done = improved < m.opt.tolerance * torch.clamp(new_cost.abs(),
-                                                        min=1.0)
+        done = improved < opt.tolerance * torch.clamp(new_cost.abs(),
+                                                      min=1.0)
         return a_new, x_new, new_cost, done
-
-    # best-of-two init like the reference solver: warmstart vs smooth
-    x_warm = _mv(J, a0) - aref
-    x_smooth = _mv(J, a_smooth) - aref
-    da_w = a0 - a_smooth
-    c_warm = 0.5 * _dot(da_w, _mv(M, da_w)) + rowcost_sum(x_warm)
-    c_smooth = rowcost_sum(x_smooth)
-    take_warm = c_warm <= c_smooth
-    a = torch.where(take_warm[:, None], a0, a_smooth)
-    x = torch.where(take_warm[:, None], x_warm, x_smooth)
-    cost = torch.where(take_warm, c_warm, c_smooth)
 
     # Newton iterations: a batched while loop over the env axis
     def newton_cond(c):
         *_, done, it = c
-        return (it < m.opt.solver_iterations) & ~done
+        return (it < opt.solver_iterations) & ~done
 
     def newton_step(c):
         a, x, cost, _, it = c
         return (*newton_body(a, x, cost, newton_cond(c)), it + 1)
 
-    a, x, cost, _, _ = loops.while_loop(newton_cond, newton_step, (
+    a, x, _, _, it = loops.while_loop(newton_cond, newton_step, (
         a, x, cost,
         torch.zeros(cost.shape, dtype=torch.bool, device=cost.device),
         torch.zeros(cost.shape, dtype=torch.int32, device=cost.device)),
         name="newton")
-
-    efc_force, qfrc_constraint = constraint_force_from_qacc(m, d, a, jar=x)
-    return d.replace(qacc=a, qfrc_constraint=qfrc_constraint,
-                     efc_force=efc_force)
+    return a, x, it
 
 
 def _bracket_search(phi_d, phi_cost, c1, pMp, curv_floor, live):

@@ -9,8 +9,10 @@ that the entry points replay (utils/graph.StepGraph):
   kernels' launches (``LAUNCH_COUNTS``), for each named loop of the
   step (ops/loops.while_loop) the iterations its WHILE node ran and the
   iterations its envs needed (the active mask summed over each
-  iteration), the steps run, the contacts collision found and the live
-  lanes of the deep-pair exact manifold (``deep.lanes``: the enabled
+  iteration; for a loop a kernel runs each env through to its own stop,
+  ``count_loop``: the slowest env's iterations and the sum), the steps
+  run, the contacts collision found and the live lanes of the deep-pair
+  exact manifold (``deep.lanes``: the enabled
   slots of each mesh-mesh group's compaction, of its envs x 8).  The adds
   run where the work runs: inside a capture they are nodes of the graph
   (in WHILE bodies too), so every replay counts its own work;
@@ -60,7 +62,8 @@ import torch
 # (each wrapper adds one where it launches the kernel: ``count``)
 LAUNCH_COUNTS = ("chol_solve", "chol_factor", "hull_ref_face_depth",
                  "face_sat_depth", "mtv_query", "support_minmax",
-                 "graph_loop", "trace_stamp", "feature_clip")
+                 "graph_loop", "trace_stamp", "feature_clip",
+                 "newton_solve")
 # the named loops of the step (ops/loops.while_loop's ``name``)
 LOOPS = ("newton", "linesearch", "bracket", "gjk")
 SLOTS = LAUNCH_COUNTS + tuple(
@@ -210,6 +213,20 @@ def count_iteration(loop: str | None, active: torch.Tensor) -> None:
     t = _TABLES[active.device]
     t[i].add_(1)
     t[j].add_(active.sum())
+
+
+def count_loop(loop: str, per_env: torch.Tensor) -> None:
+    """A loop that ran each env to its own stop in one kernel (no WHILE
+    node): ``per_env`` holds each env's iterations.  Its two counts get
+    what a lockstep loop over the same envs would count: the iterations
+    of the slowest env (``.iters``: the max) and the envs' own
+    (``.env_iters``: the sum)."""
+    if not _COUNTING or per_env.device not in _MODE:
+        return
+    i, j = _LOOP[loop]
+    t = _TABLES[per_env.device]
+    t[i].add_(per_env.max())
+    t[j].add_(per_env.sum())
 
 
 def counts(device) -> dict:

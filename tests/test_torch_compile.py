@@ -183,6 +183,7 @@ def test_put_model_defaults_to_the_card_and_raises_without_one():
     ("torch_support_stamps", "support_minmax", "_STAMPS"),
     ("torch_mtv_regimes", "mtv_query", "_ALWAYS_BIG"),
     ("torch_chol_stamps", "chol_solve", "_STAMPS"),
+    ("torch_newton_stamps", "newton_solve", "_STAMPS"),
     ("torch_mtv_stamps", "mtv_query", "_STAMPS")])
 def test_measurement_variants_still_apply(script, kernel, edits):
     """The measurement scripts build variants of a shipped kernel (stamped,

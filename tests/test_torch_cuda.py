@@ -6,6 +6,7 @@ There, run it without the jax-importing conftest:
 """
 
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -13,7 +14,8 @@ import torch
 
 import mujoco_sim_tpu_torch as mst
 from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat, hull_sat,
-                                      manifold, mtv_query, support_minmax)
+                                      manifold, mtv_query, newton_solve,
+                                      solver, support_minmax)
 from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
 from mujoco_sim_tpu_torch.runtime import profiler
 from mujoco_sim_tpu_torch.utils import kernel_cases
@@ -139,19 +141,21 @@ def test_chol_kernels_above_the_size_classes(case, cuda_device):
 
 @pytest.mark.cuda
 def test_step_on_card_runs_the_kernel(cuda_device):
-    """f32 on the card: every SPD solve is a kernel launch (two per step
-    plus one per Newton iteration) and qLD stays zero."""
+    """f32 on the card: the two SPD solves of each step are chol_solve
+    launches and its Newton loop one newton_solve launch (the box is
+    pyramidal, nv = 6), and qLD stays zero."""
     m = mst.put_model(mst.load_model(str(FIXTURES / "floor_box.xml")),
                       torch.float32, cuda_device)
     assert not torch.backends.cuda.matmul.allow_tf32
     d = mst.make_data(m, 64)
     qpos = d.qpos.clone()
     qpos[:, 2] = 0.1                         # start just above the floor
-    before = chol.LAUNCHES
+    before = chol.LAUNCHES, newton_solve.LAUNCHES
     # the eager rollout: a graph replay runs without the wrappers
     d = rollout_eager(m, d.replace(qpos=qpos), 20)
     torch.cuda.synchronize()
-    assert chol.LAUNCHES - before > 2 * 20
+    assert chol.LAUNCHES - before[0] == 2 * 20
+    assert newton_solve.LAUNCHES - before[1] == 20
     assert bool((d.qLD == 0).all())
     assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
     assert int(d.ncon.min()) > 0
@@ -454,14 +458,16 @@ def test_collision_wrappers_reject_what_they_cannot_take(cuda_device):
 @pytest.mark.cuda
 def test_manip_rollout_on_card_runs_the_collision_kernels(cuda_device):
     """20 stirred steps of manip_bin6 at 64 envs, f32 on the card: both
-    hull_ref_face_depth calls and the exact-MTV query launch every step,
-    nothing goes non-finite, the objects stay in the bin."""
+    hull_ref_face_depth calls, the exact-MTV query, the two SPD solves and
+    the Newton kernel launch every step, nothing goes non-finite, the
+    objects stay in the bin."""
     m = mst.put_model(mst.load_model(str(FIXTURES / "manip_bin6.xml")))
     assert m.device.type == "cuda" and m.dtype == torch.float32
     d = mst.make_data(m, 64)
     phase = torch.tensor(np.random.default_rng(1).uniform(0, 6.28, (64, m.nu)),
                          dtype=torch.float32, device=cuda_device)
-    before = hull_sat.LAUNCHES, mtv_query.LAUNCHES, chol.LAUNCHES
+    before = (hull_sat.LAUNCHES, mtv_query.LAUNCHES, chol.LAUNCHES,
+              newton_solve.LAUNCHES)
     # the eager rollout: a graph replay runs without the wrappers
     d = rollout_eager(m, d, 20,
                       ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
@@ -469,7 +475,8 @@ def test_manip_rollout_on_card_runs_the_collision_kernels(cuda_device):
     torch.cuda.synchronize()
     assert hull_sat.LAUNCHES - before[0] == 2 * 20
     assert mtv_query.LAUNCHES - before[1] == 20
-    assert chol.LAUNCHES - before[2] > 2 * 20
+    assert chol.LAUNCHES - before[2] == 2 * 20
+    assert newton_solve.LAUNCHES - before[3] == 20
     assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
     pos = torch.stack([d.qpos[:, 6 + 7 * i:9 + 7 * i] for i in range(6)], 1)
     assert bool((pos[..., :2].abs() < 0.34).all() & (pos[..., 2] > 0).all())
@@ -674,14 +681,16 @@ def test_terrain_rollout_on_card_runs_the_kernels(cuda_device):
     phase = torch.tensor(np.random.default_rng(1).uniform(0, 6.28, (64, m.nu)),
                          dtype=torch.float32, device=cuda_device)
     cr = m.actuator_ctrlrange
-    before = hull_sat.LAUNCHES, mtv_query.LAUNCHES, chol.LAUNCHES
+    before = (hull_sat.LAUNCHES, mtv_query.LAUNCHES, chol.LAUNCHES,
+              newton_solve.LAUNCHES)
     d = rollout_eager(m, d, 20, ctrl_fn=lambda d_: cr[:, 0] + (
         cr[:, 1] - cr[:, 0]) * (0.5 + 0.5 * torch.sin(
             4.0 * d_.time[:, None] + phase)))
     torch.cuda.synchronize()
     assert hull_sat.LAUNCHES - before[0] > 0
     assert mtv_query.LAUNCHES - before[1] == 20
-    assert chol.LAUNCHES - before[2] > 2 * 20
+    assert chol.LAUNCHES - before[2] >= 2 * 20
+    assert newton_solve.LAUNCHES - before[3] == 20
     for v in (d.qpos, d.qvel, d.ten_length, d.ten_J, d.sensordata):
         assert bool(torch.isfinite(v).all())
     act = d.act[:, :6]
@@ -917,13 +926,14 @@ def test_replay_launches_counted_on_card(cuda_device):
             g.run(m, d, n=4)
             c1 = profiler.counts(cuda_device)
             mods = dict(chol_solve=chol, hull_ref_face_depth=hull_sat,
-                        mtv_query=mtv_query)
+                        mtv_query=mtv_query, newton_solve=newton_solve)
             before = {k: mod.LAUNCHES for k, mod in mods.items()}
             rollout_eager(m, d, 4, ctrl_fn=ctrl_fn)
             c2 = profiler.counts(cuda_device)
         for k, mod in mods.items():
             assert (c1[k] - c0[k] == mod.LAUNCHES - before[k]
                     == c2[k] - c1[k] > 0), k
+        assert c1["newton_solve"] - c0["newton_solve"] == 4  # one a step
         assert c1["graph_loop"] > c0["graph_loop"]
         assert c2["graph_loop"] == c1["graph_loop"]
         rollout_eager(m, d, 2, ctrl_fn=ctrl_fn)
@@ -977,3 +987,298 @@ def test_graph_loop_predicate_matches_any(cuda_device):
             if k is not None:
                 mask[k] = True
             assert int(loops.any_cuda(mask)) == int(loops.any_plain(mask))
+
+
+# ------------------------------------------------- the Newton solve kernel
+
+def _pre_solve(m, d):
+    """The state the constraint solve starts from: the forward stages
+    before it."""
+    from mujoco_sim_tpu_torch import engine
+    d = engine.fwd_position(m, d)
+    return engine.fwd_acceleration(m, engine.fwd_actuation(
+        m, engine.fwd_velocity(m, d)))
+
+
+def _solve_both(m, d):
+    """solver.solve on one card state through the kernel and through the
+    lockstep loops (the rule switched off): each path's Data, each env's
+    Newton iterations on either, and the lockstep loops' arguments."""
+    got = {}
+    take, kernel, lockstep = (solver.takes_kernel, solver.newton_kernel,
+                              solver._newton_lockstep)
+
+    def kernel_spy(*args):
+        out = kernel(*args)
+        got["kernel"] = out[2]
+        return out
+
+    def lockstep_spy(*args, **kw):
+        out = lockstep(*args, **kw)
+        got["lockstep"], got["args"] = out[2], args
+        return out
+
+    try:
+        solver.newton_kernel = kernel_spy
+        solver._newton_lockstep = lockstep_spy
+        k = solver.solve(m, d)
+        solver.takes_kernel = lambda m_, dev: False
+        p = solver.solve(m, d)
+    finally:
+        solver.takes_kernel, solver.newton_kernel = take, kernel
+        solver._newton_lockstep = lockstep
+    torch.cuda.synchronize()
+    assert set(got) == {"kernel", "lockstep", "args"}
+    return k, got["kernel"], p, got["lockstep"], got["args"]
+
+
+def _objective(rows, M, a_smooth, J, aref, D, a):
+    """The solve's objective at qacc a, in float64 (the two paths' answers
+    are held to each other by it: both minimise it in float32)."""
+    a = a.double()
+    x = (J.double() @ a[..., None])[..., 0] - aref.double()
+    da = a - a_smooth.double()
+    return (0.5 * (da * (M.double() @ da[..., None])[..., 0]).sum(-1)
+            + solver._row_cost(rows, x, D.double()).sum(-1))
+
+
+def _rel(a, b, scale):
+    """Each env's largest |a - b| over the largest |scale| + 1."""
+    return (a - b).abs().amax(-1) / (scale.abs().amax(-1) + 1.0)
+
+
+def _hold_iterations(ik, ip, most, share):
+    """The stop test sits on float32 rounding (improvement below 1e-8 of
+    the cost, ROADMAP A.3): the two paths' sums round otherwise, so an
+    env's count may move.  Every env within ``most``, at most ``share`` of
+    the envs off by 2 or more, the means within 3%."""
+    di = (ik - ip).abs()
+    assert int(di.max()) <= most, int(di.max())
+    assert float((di >= 2).float().mean()) <= share
+    mk, mp = float(ik.float().mean()), float(ip.float().mean())
+    assert abs(mk - mp) <= 0.03 * mp, (mk, mp)
+
+
+def _lockstep64(opt, rows, M, a_s, J, D, a, x, cost):
+    """The lockstep loops in float64 from the same float32 inputs, on the
+    CPU (the card's SPD solve is float32 only); (a, x, iterations) back on
+    the inputs' device."""
+    cpu = lambda t: t.cpu()
+    r = types.SimpleNamespace(
+        efc_type=cpu(rows.efc_type), efc_floss_active=cpu(
+            rows.efc_floss_active),
+        efc_frictionloss=cpu(rows.efc_frictionloss).double())
+    out = solver._newton_lockstep(opt, r, *(cpu(t).double() for t in (
+        M, a_s, J, D, a, x, cost)))
+    return tuple(t.to(a.device) for t in out)
+
+
+def _iterations_near_f64(ik, ip, i64):
+    """The lockstep loops in float64 as the third witness of the iteration
+    counts: the kernel's lie no farther from theirs than the float32 loops'
+    do, within half again (the mean |difference| and the share of envs
+    off by 2 or more, with floors of 0.1 and 1%).  Then the two float32
+    paths part where float32 rounding decides the stop test."""
+    dk, dp = (ik - i64).abs().float(), (ip - i64).abs().float()
+    assert float(dk.mean()) <= 1.5 * float(dp.mean()) + 0.1, (
+        float(dk.mean()), float(dp.mean()))
+    sk, sp = (float((v >= 2).float().mean()) for v in (dk, dp))
+    assert sk <= 1.5 * sp + 0.01, (sk, sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nenv", [1024, 8192])
+def test_newton_kernel_matches_lockstep_on_manip(nenv, cuda_device):
+    """The kernel against the lockstep loops on the state of a stirred
+    manip rollout (40 steps through the step graph), the same card inputs.
+    Their sums run in other orders, so they meet at the optimum, not bit
+    for bit: the kernel's objective is no higher than the loops' but by
+    2e-6 of it (read: 5.6e-7), qacc within 3e-3 of each env's largest
+    (+1) at the 99th percentile and 5e-2 at most (read: 6.7e-4 and
+    1.1e-2 at 8192: envs where the stop test flipped), efc_force within
+    1.5e-2 of each env's largest (read: 3.2e-3), and the iteration counts
+    as _hold_iterations says (read: 3 at most, 2.7-3.6% off by 2 or 3),
+    and no farther from the float64 loops' than the float32 loops' are
+    (_iterations_near_f64)."""
+    m = mst.put_model(mst.load_model(str(FIXTURES / "manip_bin6.xml")))
+    ctrl_fn = _stirred(m, nenv)
+    d = mst.rollout(m, mst.make_data(m, nenv), 40, ctrl_fn=ctrl_fn)
+    d = _pre_solve(m, d.replace(ctrl=ctrl_fn(d)))
+    k, ik, p, ip, args = _solve_both(m, d)
+    assert bool(torch.isfinite(k.qacc).all() & torch.isfinite(k.efc_force)
+                .all())
+    obj = [_objective(d, d.qM, d.qacc_smooth, d.efc_J, d.efc_aref, d.efc_D,
+                      s.qacc) for s in (k, p)]
+    assert float(((obj[0] - obj[1]) / (obj[1].abs() + 1)).max()) <= 2e-6
+    rq = _rel(k.qacc, p.qacc, p.qacc)
+    assert float(torch.quantile(rq.float(), 0.99)) <= 3e-3
+    assert float(rq.max()) <= 5e-2
+    assert float(_rel(k.efc_force, p.efc_force, p.efc_force).max()) <= 1.5e-2
+    _hold_iterations(ik, ip, most=4, share=0.08)
+    _iterations_near_f64(ik, ip, _lockstep64(*args[:9])[2])
+
+
+def _synth(N, nv, nefc, seed=0, D_zero=False):
+    """A random batch of solve inputs: M SPD, J and aref normal, D over
+    four decades (or 0: every row inactive), every row type, friction
+    loss on 70% of the friction rows; the carry starts at a_smooth plus
+    noise.  Returns (rows, M, a_smooth, J, aref, D, a, x, cost)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((N, nv, nv))
+    M = A @ A.transpose(0, 2, 1) / nv + np.eye(nv)
+    J = rng.standard_normal((N, nefc, nv))
+    D = np.zeros((N, nefc)) if D_zero else 10.0 ** rng.uniform(0, 4,
+                                                              (N, nefc))
+    typ = rng.integers(0, 4, (N, nefc)).astype(np.int32)
+    fon = (typ == 1) & (rng.uniform(size=(N, nefc)) < 0.7)
+    fl = np.where(fon, rng.uniform(0.1, 5, (N, nefc)), 0.0)
+    a_s = rng.standard_normal((N, nv))
+    aref = 3.0 * rng.standard_normal((N, nefc))
+    a0 = a_s + 0.5 * rng.standard_normal((N, nv))
+    t = lambda v, dt=torch.float32: torch.tensor(v, dtype=dt, device="cuda")
+    rows = types.SimpleNamespace(efc_type=t(typ, torch.int32),
+                                 efc_frictionloss=t(fl),
+                                 efc_floss_active=t(fon, torch.bool))
+    M, J, D, a_s, aref, a = t(M), t(J), t(D), t(a_s), t(aref), t(a0)
+    x = (J @ a[..., None])[..., 0] - aref
+    da = a - a_s
+    cost = (0.5 * (da * (M @ da[..., None])[..., 0]).sum(-1)
+            + solver._rowcost_sum(rows, x, D))
+    return rows, M, a_s, J, aref, D, a, x, cost
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inactive_nv6", "no_iteration",
+                                  "held_at_cap", "frictionloss_nv42",
+                                  "nv64", "j_past_shared_memory"])
+def test_newton_kernel_edge_cases(case, cuda_device):
+    """The kernel against the lockstep loops (ops/solver._newton_lockstep,
+    its plain twin) on the same random inputs: every row inactive at
+    mobile's nv = 6 (D = 0: one Newton step to a_smooth, the next stops);
+    no iteration allowed (the carry comes back as it went in); every env
+    held at a cap of two iterations; friction-loss rows of every kind at
+    the manip nv; nv = 64 with J staged in shared memory; and J past the
+    card's shared memory (read from device memory).  Held as on manip:
+    the objective, then the answers within 2e-3 of each env's largest
+    (read: 1.3e-4 at nv = 42; 8.1e-5 at nv = 64), the iteration counts
+    also against the float64 loops (_iterations_near_f64); at the cap of
+    two, far from the optimum, by the objective, which lies no farther
+    from the float64 loops' than twice the float32 loops' (+2e-6)."""
+    nv, nefc, N, cap = dict(
+        inactive_nv6=(6, 10, 256, 50), no_iteration=(42, 131, 64, 0),
+        held_at_cap=(42, 131, 256, 2), frictionloss_nv42=(42, 131, 256, 50),
+        nv64=(64, 300, 64, 50), j_past_shared_memory=(64, 1000, 32, 50))[case]
+    rows, M, a_s, J, aref, D, a, x, cost = _synth(
+        N, nv, nefc, D_zero=case == "inactive_nv6")
+    assert newton_solve.staged(nv, nefc) == (
+        0 if case == "j_past_shared_memory" else 1)
+    opt = types.SimpleNamespace(tolerance=1e-8, ls_tolerance=0.01,
+                                solver_iterations=cap, ls_iterations=20)
+    before = newton_solve.LAUNCHES
+    ak, xk, ik, lk = newton_solve.newton_solve_cuda(
+        M, a_s, J, D, rows.efc_type, rows.efc_frictionloss,
+        rows.efc_floss_active, a, x, cost, opt.tolerance, opt.ls_tolerance,
+        opt.solver_iterations, opt.ls_iterations)
+    ap, xp, ip = solver._newton_lockstep(opt, rows, M, a_s, J, D, a, x, cost)
+    a64, _, i64 = _lockstep64(opt, rows, M, a_s, J, D, a, x, cost)
+    torch.cuda.synchronize()
+    assert newton_solve.LAUNCHES == before + 1
+    if case == "no_iteration":
+        assert torch.equal(ak, a) and torch.equal(xk, x)
+        assert int(ik.abs().max()) == int(lk.abs().max()) == 0
+        return
+    assert bool(torch.isfinite(ak).all() & torch.isfinite(xk).all())
+    assert bool((lk >= ik).all())          # a line-search step an iteration
+    obj = [_objective(rows, M, a_s, J, aref, D, s) for s in (ak, ap)]
+    gap = float(((obj[0] - obj[1]) / (obj[1].abs() + 1)).max())
+    if case == "held_at_cap":
+        # two steps from the start, far from the optimum: the two float32
+        # factors' directions part along the Hessian's stiff directions
+        # (D over four decades), so the objectives agree to 1e-3 of
+        # themselves (read: 1.3e-4), and both fall
+        assert bool((ik == cap).all() & (ip == cap).all())
+        assert bool((obj[0] < cost.double()).all())
+        assert abs(gap) <= 1e-3, gap
+        # the float64 loops, two steps too: the kernel's objective as near
+        # theirs as the float32 loops', so the gap is float32 rounding
+        o64 = _objective(rows, M, a_s, J, aref, D, a64)
+        gk, gp = (float(((o - o64) / (o64.abs() + 1)).abs().max())
+                  for o in obj)
+        assert gk <= 2 * gp + 2e-6, (gk, gp)
+        return
+    if case == "inactive_nv6":
+        assert int(ik.max()) <= 3 and int(ip.max()) <= 3
+        torch.testing.assert_close(ak, a_s, rtol=1e-5, atol=1e-5)
+    else:
+        _hold_iterations(ik, ip, most=4, share=0.08)
+        _iterations_near_f64(ik, ip, i64)
+    assert gap <= 2e-6, gap
+    rel = float(_rel(ak, ap, ap).max())
+    assert rel <= 2e-3, rel
+    # the carried jar is J a - aref of the answer
+    torch.testing.assert_close(xk, (J @ ak[..., None])[..., 0] - aref,
+                               rtol=0, atol=2e-3 * float(xk.abs().max()))
+
+
+@pytest.mark.cuda
+def test_newton_kernel_with_nan_warmstart(cuda_device):
+    """A NaN warmstart in half the envs falls back to a_smooth in the init
+    (plain PyTorch before the kernel): the kernel's answers stay finite
+    and meet the lockstep loops' as on manip."""
+    m = mst.put_model(mst.load_model(str(FIXTURES / "manip_bin6.xml")))
+    ctrl_fn = _stirred(m, 64)
+    d = mst.rollout(m, mst.make_data(m, 64), 30, ctrl_fn=ctrl_fn)
+    ws = d.qacc_warmstart.clone()
+    ws[::2, 3] = float("nan")
+    d = _pre_solve(m, d.replace(ctrl=ctrl_fn(d), qacc_warmstart=ws))
+    k, ik, p, ip, _ = _solve_both(m, d)
+    assert bool(torch.isfinite(k.qacc).all())
+    obj = [_objective(d, d.qM, d.qacc_smooth, d.efc_J, d.efc_aref, d.efc_D,
+                      s.qacc) for s in (k, p)]
+    assert float(((obj[0] - obj[1]) / (obj[1].abs() + 1)).max()) <= 2e-6
+    assert float(_rel(k.qacc, p.qacc, p.qacc).max()) <= 5e-2
+    _hold_iterations(ik, ip, most=4, share=0.15)
+
+
+@pytest.mark.cuda
+def test_newton_kernel_refuses_what_it_cannot_take(cuda_device):
+    """float64, a wrong shape, nv = 65; an elliptic model and one with
+    nv > 64 at the model-level entry."""
+    rows, M, a_s, J, aref, D, a, x, cost = _synth(4, 8, 12)
+    args = [M, a_s, J, D, rows.efc_type, rows.efc_frictionloss,
+            rows.efc_floss_active, a, x, cost]
+    opts = (1e-8, 0.01, 50, 20)
+    with pytest.raises(TypeError, match="float32"):
+        newton_solve.newton_solve_cuda(M.double(), *args[1:], *opts)
+    with pytest.raises(ValueError, match="x is"):
+        newton_solve.newton_solve_cuda(*args[:8], x[:, :5], cost, *opts)
+    with pytest.raises(TypeError, match="int32"):
+        newton_solve.newton_solve_cuda(*args[:4], rows.efc_type.long(),
+                                       *args[5:], *opts)
+    r65, M65, a65, J65, _, D65, a65b, x65, c65 = _synth(2, 65, 12)
+    with pytest.raises(ValueError, match="nv=65"):
+        newton_solve.newton_solve_cuda(
+            M65, a65, J65, D65, r65.efc_type, r65.efc_frictionloss,
+            r65.efc_floss_active, a65b, x65, c65, *opts)
+    for scene in ("elliptic_box.xml", "box_pile11.xml"):
+        m = mst.put_model(mst.load_model(str(FIXTURES / scene)))
+        d = _pre_solve(m, mst.make_data(m, 4))
+        with pytest.raises(ValueError, match="pyramidal or frictionless"):
+            solver.newton_kernel(m, d, d.efc_D, d.qacc_smooth, d.efc_aref,
+                                 d.qacc_smooth[:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["elliptic_box.xml", "box_pile11.xml"])
+def test_lockstep_scenes_launch_no_newton_kernel(scene, cuda_device):
+    """An elliptic scene and one with nv > 64 keep the lockstep loops on
+    the card: no newton_solve launch, a chol_solve launch each Newton
+    iteration, finite steps."""
+    m = mst.put_model(mst.load_model(str(FIXTURES / scene)))
+    d = _dropped_boxes(m, 32)
+    before = newton_solve.LAUNCHES, chol.LAUNCHES
+    d = rollout_eager(m, d, 5)
+    torch.cuda.synchronize()
+    assert newton_solve.LAUNCHES == before[0]
+    assert chol.LAUNCHES - before[1] > 2 * 5
+    assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
