@@ -46,8 +46,8 @@ state to it bit for bit, replays one step under
 torch.cuda.set_sync_debug_mode("error"), counts the hand-written kernels
 its replays launch on the card (in a second capture of the same step
 with the count adds in it; no graph that is timed counts) and holds each
-count to the eager steps' over the same steps from the same state (the
-wrappers' counts and the card's), and prints both paths' env-steps/s
+count to the eager steps' over the same steps from the same state, and
+prints both paths' env-steps/s
 (also over the same steps from the same state), host and device ms a
 step, device busy share and the graph's pool.  Builds the ten hand-written kernels from the
 checkout's own sources, holds each against its plain PyTorch twin, and
@@ -72,6 +72,7 @@ BASELINE configs 3 and 5.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -83,6 +84,8 @@ import types
 
 import numpy as np
 import torch
+
+from mujoco_sim_tpu_torch.ops import cuda_build
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BOX = os.path.join(ROOT, "tests", "fixtures", "floor_box.xml")
@@ -237,17 +240,18 @@ def _ptxas(text):
 
 
 def build():
-    from mujoco_sim_tpu_torch.ops import (chol, chol_factor, cuda_build,
-                                          face_sat, hull_sat, loops,
-                                          manifold, mtv_query, newton_solve,
+    from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
+                                          hull_sat, loops, manifold,
+                                          mtv_query, newton_solve,
                                           support_minmax, trace_stamp)
     t0 = time.perf_counter()
     info = cuda_build.build_all()
     for mod in (chol, chol_factor, hull_sat, mtv_query, support_minmax,
                 face_sat, loops, trace_stamp, manifold, newton_solve):
         mod._load()
-    if len(info) != 10:
-        raise AssertionError(f"expected ten kernels, built {sorted(info)}")
+    if set(info) != set(cuda_build.KERNELS):
+        raise AssertionError(f"built {sorted(info)}, not the kernels of "
+                             "ops/cuda_build.KERNELS")
     phase("build", wall_seconds=time.perf_counter() - t0,
           cuda_driver=loops.driver_version(), kernels={
         name: dict(source=os.path.relpath(cuda_build.source_path(name), ROOT),
@@ -684,12 +688,11 @@ def face_sat_vs_plain():
                     f"face_sat_depth case {name}: {what} disagrees with the "
                     f"twin, max abs err {_max_err(a, b)}")
             worst = max(worst, _max_err(a, b))
-    # its own entry point's path: counts set to 0 just before, read just
-    # after (no step calls it; scripts/torch_sat_proto.py does)
-    face_sat.LAUNCHES = 0
-    face_sat.face_sat_depth(pts, planes, mask, 2)
-    torch.cuda.synchronize()
-    launches = face_sat.LAUNCHES
+    # its own entry point's path, counted (no step calls it;
+    # scripts/torch_sat_proto.py does)
+    with _launched() as n:
+        face_sat.face_sat_depth(pts, planes, mask, 2)
+    launches = n["face_sat_depth"]
     if launches != 1:
         raise AssertionError(f"face_sat_depth launched {launches} times")
     phase("kernel_vs_plain", kernel="face_sat_depth", cases=ncase,
@@ -1049,30 +1052,19 @@ def _settled(d, half_lo, z_hi, speed):
     return ok.all(1), float(z.min()), float(z.max()), float(v.max())
 
 
-def _reset_counts():
-    from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
-                                          hull_sat, manifold, mtv_query,
-                                          newton_solve, support_minmax,
-                                          trace_stamp)
-    for mod in (chol, chol_factor, face_sat, hull_sat, mtv_query,
-                support_minmax, trace_stamp, manifold, newton_solve):
-        mod.LAUNCHES = 0
-
-
-def _counts():
-    from mujoco_sim_tpu_torch.ops import (chol, chol_factor, face_sat,
-                                          hull_sat, manifold, mtv_query,
-                                          newton_solve, support_minmax,
-                                          trace_stamp)
-    return dict(chol_solve=chol.LAUNCHES,
-                chol_factor=chol_factor.LAUNCHES,
-                face_sat_depth=face_sat.LAUNCHES,
-                hull_ref_face_depth=hull_sat.LAUNCHES,
-                mtv_query=mtv_query.LAUNCHES,
-                support_minmax=support_minmax.LAUNCHES,
-                trace_stamp=trace_stamp.LAUNCHES,
-                feature_clip=manifold.LAUNCHES,
-                newton_solve=newton_solve.LAUNCHES)
+@contextlib.contextmanager
+def _launched():
+    """The hand-written kernels launched on the card inside the block, by
+    the recorder's table (runtime/profiler.counting; a graph captured in
+    it counts its replays): a dict by slot, filled on exit."""
+    from mujoco_sim_tpu_torch.runtime import profiler
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = {}
+    with profiler.counting(dev):
+        c0 = profiler.counts(dev)
+        yield n
+        c1 = profiler.counts(dev)
+    n.update({k: c1[k] - c0[k] for k in profiler.LAUNCH_COUNTS})
 
 
 def _span_s(sp):
@@ -1116,32 +1108,14 @@ def _timed_rollouts(run, reps):
 
 
 GRAPH_FIELDS = ("qpos", "qvel", "act", "qacc_warmstart")
-# phase -> the wrappers' kernel counts over its graph main path: the
-# graph's warm-up call and its capture (path_vs_eager)
-GRAPH_COUNTS = {}
 # phase -> the hand-written kernels a replayed step launches, counted on
 # the card, and their device ms a step from the eager trace
 # (hold_replay_counts)
 REPLAY_COUNTS = {}
 REPLAY_MS = {}
-# the hand-written kernels by the names of their __global__ functions in
-# mujoco_sim_tpu_torch/csrc/ (tests/test_torch_graph.py checks that every
-# __global__ there is named here); the key is the wrapper module's count
-# in _counts(), graph_loop the WHILE nodes' predicate
-REPLAY_KERNELS = {
-    "chol_solve": ("chol_solve_kernel", "chol_solve_panel_kernel",
-                   "chol_solve_work_kernel"),
-    "chol_factor": ("chol_factor_kernel", "chol_factor_panel_kernel",
-                    "chol_factor_work_kernel"),
-    "hull_ref_face_depth": ("hull_sat_kernel",),
-    "face_sat_depth": ("face_sat_kernel",),
-    "mtv_query": ("mtv_query_kernel", "mtv_query_block_kernel"),
-    "support_minmax": ("support_minmax_kernel",),
-    "graph_loop": ("set_any",),
-    "trace_stamp": ("trace_stamp_kernel",),
-    "feature_clip": ("feature_clip_kernel",),
-    "newton_solve": ("newton_solve_kernel",),
-}
+# the hand-written kernels' __global__ functions by their launch counts
+# (ops/cuda_build.KERNELS), graph_loop the WHILE nodes' predicate
+REPLAY_KERNELS = {k.slot: k.functions for k in cuda_build.KERNELS.values()}
 _KERNEL_OF = {g: k for k, gs in REPLAY_KERNELS.items() for g in gs}
 _KERNEL_NAME = re.compile(r"(?<!\w)(" + "|".join(_KERNEL_OF) + r")(?!\w)")
 
@@ -1215,22 +1189,13 @@ def _diffs(fa, fb):
 def count_eager(eager, nsteps):
     """eager() (nsteps eager steps) twice: under the profiler, counting
     nothing (device ms and CUDA ops a step, each hand-written kernel's
-    device ms by name), then with the wrappers' counts (LAUNCHES) and the
-    counts on the card (runtime/profiler.counting) set to 0 just before and
-    read just after, its final fields kept: the reference of
+    device ms by name), then with its launches counted on the card
+    (_launched), its final fields kept: the reference of
     hold_replay_counts."""
-    from mujoco_sim_tpu_torch.ops import loops
-    from mujoco_sim_tpu_torch.runtime import profiler
     eag = _profile(eager, nsteps)
-    dev = torch.device("cuda", torch.cuda.current_device())
-    _reset_counts()
-    loops.LAUNCHES = 0
-    with profiler.counting(dev):
-        c0 = profiler.counts(dev)
+    with _launched() as on_card:
         out = eager()
-        c1 = profiler.counts(dev)
-    eag.update(wrappers=_counts(), loop_launches=loops.LAUNCHES,
-               on_card={k: c1[k] - c0[k] for k in REPLAY_KERNELS},
+    eag.update(on_card=on_card,
                final={k: v.clone() for k, v in _graph_fields(out).items()})
     return eag
 
@@ -1248,15 +1213,14 @@ def hold_replay_counts(what, replay, eager, nsteps, eag=None):
     now with each wrapper's count add in it (a replay adds its launches, a
     WHILE body's once an iteration), and the second call's replays are
     counted.  They must end where the eager steps end, bit for bit, and
-    each kernel's count over them must equal the wrappers' count
-    (LAUNCHES) over the eager steps and the card's count over them: the
-    graph is bit-equal to eager, so the same data goes through the same
-    loops, however often a WHILE body runs.  The WHILE nodes' predicate
-    (graph_loop) has no eager launch and must only have run, unless the
-    Newton kernel ran the step's solver loop in its place.  The counted
-    graph is dropped and the path's graph captured again without counts,
-    as the phase had it; that recapture's pool MB and seconds (_captures)
-    go into ``captures``, one pair a graph.
+    each kernel's count over them must equal the card's count over the
+    eager steps: the graph is bit-equal to eager, so the same data goes
+    through the same loops, however often a WHILE body runs.  The WHILE
+    nodes' predicate (graph_loop) has no eager launch and must only have
+    run, unless the Newton kernel ran the step's solver loop in its place.
+    The counted graph is dropped and the path's graph captured again
+    without counts, as the phase had it; that recapture's pool MB and
+    seconds (_captures) go into ``captures``, one pair a graph.
     A kernel's device ms a launch is the mean of its launches in the eager
     trace (the same launches on the same inputs).  Returns the replays'
     profile (``counts``: the card's), the kernels' ms a launch and the
@@ -1272,9 +1236,8 @@ def hold_replay_counts(what, replay, eager, nsteps, eag=None):
     torch.cuda.empty_cache()
     with profiler.counting(dev):
         replay()                               # the counted capture
-        c0 = profiler.counts(dev)
-        got = replay()
-        c1 = profiler.counts(dev)
+        with _launched() as on_card:
+            got = replay()
     graph.clear_all()
     torch.cuda.empty_cache()
     _, caps = _captures(replay)           # captured again, without counts
@@ -1283,14 +1246,13 @@ def hold_replay_counts(what, replay, eager, nsteps, eag=None):
     if diffs:
         raise AssertionError(f"{what}: the counted replays vs the eager "
                              f"steps from the same state: {diffs}")
-    on_card = {k: c1[k] - c0[k] for k in REPLAY_KERNELS}
     eager_card = eag["on_card"]
-    if eag["loop_launches"] or eager_card["graph_loop"]:
+    if eager_card["graph_loop"]:
         raise AssertionError(f"{what}: the eager steps launched the WHILE "
                              "predicate")
-    bad = {k: dict(replay=on_card[k], eager=n, eager_on_card=eager_card[k])
-           for k, n in eag["wrappers"].items()
-           if not on_card[k] == n == eager_card[k]}
+    bad = {k: dict(replay=on_card[k], eager=n)
+           for k, n in eager_card.items()
+           if k != "graph_loop" and on_card[k] != n}
     if bad:
         raise AssertionError(f"{what}: hand-written kernels in {nsteps} "
                              f"replays vs {nsteps} eager steps: {bad}")
@@ -1357,25 +1319,21 @@ def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
     eager(x, n) the same steps as a Python loop of eager steps.  From x0
     over nsteps, run is held to eager_final (eager(x0, nsteps), which the
     caller ran) on _graph_fields: bit for bit unless a band is given with
-    its cause.  The kernel counts are set to 0 just before and read just
-    after (the wrappers count the graph's warm-up call and its capture; a
-    replay runs without them).  Then: the eager steps' and the graph's
-    host time over the same eager_steps steps from x0; one replay under
+    its cause.  Then: the eager steps' and the graph's host time over the
+    same eager_steps steps from x0; one replay under
     set_sync_debug_mode("error"), which raises at any host sync; host
     syncs of an eager step; device time and busy share; the graph's pool;
     and the hand-written kernels of count_steps replays from the graph's
     final state held to as many eager steps from eager_final, the same
-    state (hold_replay_counts).  ``solve_model`` (the phase's model) adds
-    the Newton solve's launches to ``need``: the newton_solve kernel's
-    where the model takes it, else the lockstep loops' WHILE predicate.
-    Every eager step runs before the
+    state (hold_replay_counts), each kernel of ``need`` among them.
+    ``solve_model`` (the phase's model) adds the Newton solve's launches
+    to ``need``: the newton_solve kernel's where the model takes it, else
+    the lockstep loops' WHILE predicate.  Every eager step runs before the
     capture, and no graph that is timed counts launches.  The graph's
     throughput is timed on a rollout of replays only: from x0 over nsteps
     again, or ``then`` steps from the compared final state onwards.
-    Returns the wrappers' counts (``capture``), the replays' profile
-    (``replay``), the state the timed rollout ended in (``final``) and
-    the phase's line."""
-    from mujoco_sim_tpu_torch.ops import loops
+    Returns the replays' profile (``replay``), the state the timed rollout
+    ended in (``final``) and the phase's line."""
     from mujoco_sim_tpu_torch.utils import graph
     nenv = _data_of(x0).qpos.shape[0]
     graph.clear_all()
@@ -1388,8 +1346,6 @@ def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    _reset_counts()
-    loops.LAUNCHES = 0
     t0 = time.perf_counter()
     x, caps = _captures(lambda: run(x0, nsteps))
     torch.cuda.synchronize()
@@ -1398,14 +1354,6 @@ def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
     if not caps:
         raise AssertionError(f"{what}: its first call made no capture")
     pool_mb, capture_s = (sum(c) for c in zip(*caps))
-    counts = dict(_counts(), graph_loop=loops.LAUNCHES)
-    GRAPH_COUNTS[what] = counts
-    if solve_model is not None:
-        need = tuple(dict.fromkeys(tuple(need) + _solve_need(solve_model)))
-    missing = [k_ for k_ in need if counts[k_] == 0]
-    if missing:
-        raise AssertionError(f"{what}: {missing} never launched on the "
-                             "graph main path")
     peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
     diffs = _diffs(_graph_fields(x), _graph_fields(eager_final))
     bad = {k_: v for k_, v in diffs.items() if not v <= band}
@@ -1428,10 +1376,16 @@ def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
     torch.cuda.synchronize()
     rep = hold_replay_counts(what, lambda: run(x, count_steps), None,
                              count_steps, eag)
+    if solve_model is not None:
+        need = tuple(dict.fromkeys(tuple(need) + _solve_need(solve_model)))
+    missing = [k_ for k_ in need if rep["counts"][k_] == 0]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched on the "
+                             "graph main path")
     out = dict(
         steps=nsteps, nenv=nenv, held=("bit for bit" if band == 0.0
                                        else f"within {band}: {band_cause}"),
-        max_abs_diff=diffs, launches_capture=counts, **extra,
+        max_abs_diff=diffs, **extra,
         replay_kernels=_replay_record(rep, count_steps),
         same_steps=dict(steps=k, start="the phase's first state",
                         eager_host_ms_per_step=eager_s * 1e3,
@@ -1458,7 +1412,7 @@ def path_vs_eager(what, run, eager, graph_of, x0, nsteps, eager_final,
                    capture_s=capture_s, first_call_s=first_s),
         card=card)
     phase(f"{what}_graph", **out)
-    return dict(capture=counts, replay=rep, final=final, line=out)
+    return dict(replay=rep, final=final, line=out)
 
 
 def _solve_need(m) -> tuple:
@@ -1500,11 +1454,9 @@ def box_main_path(card):
     # the eager rollout: the reference the graph is held to, and the
     # launches a step makes
     from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
-    _reset_counts()
-    d = rollout_eager(m, d0, nsteps)
-    torch.cuda.synchronize()
-    launches = _counts()["chol_solve"]
-    newton = _counts()["newton_solve"]
+    with _launched() as n:
+        d = rollout_eager(m, d0, nsteps)
+    launches, newton = n["chol_solve"], n["newton_solve"]
     graph_vs_eager("box", m, d0, nsteps, d, card)
 
     bad = _float_leaves_finite(d)
@@ -1594,11 +1546,9 @@ def box_cross_check(m, qpos, qvel):
 
 def second_scene():
     import mujoco_sim_tpu_torch as mst
-    from mujoco_sim_tpu_torch.ops import chol
     m = mst.put_model(mst.load_model(STACK), torch.float32, "cuda")
     d, qpos, qvel = _jittered(m, NENV, 1, stack=True)
     nsteps = 200
-    before = chol.LAUNCHES
     t0 = time.perf_counter()
     d = mst.rollout(m, _with_state(d, qpos, qvel), nsteps)
     torch.cuda.synchronize()
@@ -1618,8 +1568,7 @@ def second_scene():
         raise AssertionError("no box-box contact in the stack")
     phase("second_scene", scene="stack.xml", nenv=NENV, steps=nsteps,
           finite=True, settled=True, z_range=[zmin, zmax], max_speed=vmax,
-          box_box_contacts=box_box, seconds=secs,
-          chol_launches=chol.LAUNCHES - before)
+          box_box_contacts=box_box, seconds=secs)
 
 
 # ------------------------------------------------------------ pile main path
@@ -1637,13 +1586,11 @@ def pile_main_path(card):
     from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     d0 = mst.make_data(m, MANIP_NENV)
     nsteps = 100
-    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    d = rollout_eager(m, d0, nsteps)
-    torch.cuda.synchronize()
+    with _launched() as counts:
+        d = rollout_eager(m, d0, nsteps)
     secs = time.perf_counter() - t0
-    counts = _counts()
     graph_vs_eager("pile", m, d0, nsteps, d, card)
     bad = _float_leaves_finite(d)
     if bad:
@@ -1728,6 +1675,8 @@ class _Probe:
         self.clip_out = []
         self.sat_full, self.mtv_full = [], []
         self.newton, self.newton_out, self.newton_full = [], [], []
+        # the exact query's launches of _mtv_lanes_in_round, not the step's
+        self.own_mtv = 0
 
     def _take(self, x, nenv, rows=None):
         """A copy of x, of its rows' entries where it has the env axis."""
@@ -1798,12 +1747,11 @@ class _Probe:
                         self._take(enabled, n, rows)))
                     if some:
                         self.mtv_out.append(self._outs(out, n, rows))
-                        launches = mtv_query.LAUNCHES
                         self.mtv_full.append(dict(
                             shape=tuple(a[0].shape),
                             live=int(enabled.sum()),
                             lanes_in_round=_mtv_lanes_in_round(list(a))))
-                        mtv_query.LAUNCHES = launches
+                        self.own_mtv += mtv_query.REFINE_ROUNDS + 1
                     return out
                 kw["mtv"] = grab
             return real_epc(*args, **kw)
@@ -1900,11 +1848,9 @@ def manip_main_path(card):
     nsteps = 150
 
     from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
-    _reset_counts()
-    with _Probe(capture_calls=(50, 100, 150)) as probe:
+    with _Probe(capture_calls=(50, 100, 150)) as probe, \
+            _launched() as counts:
         d = rollout_eager(m, d0, nsteps, ctrl_fn=stir)
-        torch.cuda.synchronize()
-    counts = _counts()
     ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "main path")
     enabled = int(probe.enabled)
     graph_vs_eager("manip", m, d0, nsteps, d, card, ctrl_fn=stir,
@@ -1928,11 +1874,9 @@ def manip_main_path(card):
         # no pair went deep: drive the manifold on real contacts by asking
         # for the exact manifold on every touching mesh pair
         mx = m.replace(opt=m.opt.replace(exact_meshcollide=1))
-        _reset_counts()
-        with _Probe(capture_calls=(25, 50)) as probe_x:
+        with _Probe(capture_calls=(25, 50)) as probe_x, \
+                _launched() as cx:
             dx = rollout_eager(mx, d0, 50, ctrl_fn=stir)
-            torch.cuda.synchronize()
-        cx = _counts()
         _manip_checks(mx, dx, probe_x, cx, 50, "exact_meshcollide")
         if int(probe_x.enabled) == 0:
             raise AssertionError("the exact manifold never ran on a contact")
@@ -2041,12 +1985,11 @@ def manip_kernels(probe):
             plain_ms=_median_ms(
                 lambda: smm.support_minmax_plain(axes, b["wA"])),
             bound_ms=bound, bound_by=by)
-    # the staged query as a path of its own: counts set to 0 just before,
-    # read just after (engine.step never calls support_minmax)
-    _reset_counts()
-    manifold.mtv_staged(*args)
-    torch.cuda.synchronize()
-    staged_launches = _counts()["support_minmax"]
+    # the staged query as a path of its own, counted (engine.step never
+    # calls support_minmax)
+    with _launched() as n:
+        manifold.mtv_staged(*args)
+    staged_launches = n["support_minmax"]
     if staged_launches == 0:
         raise AssertionError("mtv_staged never launched support_minmax")
     timing["support_minmax_launches_per_staged_query"] = staged_launches
@@ -2284,12 +2227,11 @@ def bighull_main_path(card):
     dw = mst.rollout(m, d0, nwarm, ctrl_fn=stir)
     torch.cuda.synchronize()
     from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
-    _reset_counts()
     final = []
-    with _Probe(capture_calls=(25, 50, 75, 100)) as probe:
+    with _Probe(capture_calls=(25, 50, 75, 100)) as probe, \
+            _launched() as counts:
         times = _timed_rollouts(lambda: final.append(
             rollout_eager(m, dw, nsteps, ctrl_fn=stir)), 1)
-    counts = _counts()
     d = final[0]
     ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "bighull")
     graph_vs_eager("bighull", m, dw, nsteps, d, card, ctrl_fn=stir,
@@ -2399,12 +2341,10 @@ def precise_main_path(card):
     torch.cuda.synchronize()
     # the timed eager rollout is the one whose launches are counted
     from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
-    _reset_counts()
     final = []
-    with _Probe() as probe:
+    with _Probe() as probe, _launched() as counts:
         times = _timed_rollouts(lambda: final.append(
             rollout_eager(m, d0, nsteps, ctrl_fn=stir)), 1)
-    counts = _counts()
     d = final[0]
     ncon_max, pos = _manip_checks(m, d, probe, counts, nsteps, "precise")
     graph_vs_eager("precise", m, d0, nsteps, d, card, ctrl_fn=stir,
@@ -2594,12 +2534,11 @@ def terrain_main_path(card):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
-    _reset_counts()
     final = []
-    with _Probe(capture_calls=(50, 100, 150, 200)) as probe:
+    with _Probe(capture_calls=(50, 100, 150, 200)) as probe, \
+            _launched() as counts:
         times = _timed_rollouts(lambda: final.append(
             rollout_eager(m, dw, nsteps, ctrl_fn=stir)), 1)
-    counts = _counts()
     d = final[0]
     for k in ("chol_solve", "hull_ref_face_depth", "mtv_query"):
         if counts[k] == 0:
@@ -2665,12 +2604,9 @@ def terrain_deep_pass(m, d_end, nsteps=5):
     inputs are captured at three of them."""
     from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
     d0 = _rock_on_cylinder(m, d_end)
-    _reset_counts()
-    with _Probe(capture_calls=(1, 3, 5)) as probe:
+    with _Probe(capture_calls=(1, 3, 5)) as probe, _launched() as counts:
         d = rollout_eager(m, d0, nsteps,
                           ctrl_fn=_stir_ranged(m, MANIP_NENV))
-        torch.cuda.synchronize()
-    counts = _counts()
     bad = _float_leaves_finite(d)
     if bad:
         raise AssertionError(f"terrain deep pass: non-finite leaves: {bad}")
@@ -2883,7 +2819,6 @@ def control_main_path(card):
                         (d, st), nsteps, ce, card, solve_model=m,
                         need=("chol_solve", "graph_loop"))
     del ce
-    counts = res["capture"]
     d, st = res["final"]
     bad = _float_leaves_finite(d)
     if bad:
@@ -2902,8 +2837,7 @@ def control_main_path(card):
                              f"{CONTROL_EFFORT_RTOL} relative")
     phase("control_main_path", scene="manip_bin6.xml",
           controller="computed-torque PD, kp 200, kd 30, joints a1-a6",
-          nenv=n, steps=nsteps, launches=counts,
-          tracking_error_start=err0,
+          nenv=n, steps=nsteps, tracking_error_start=err0,
           tracking_error_end_max=float(err.max()),
           tracking_error_end_median=float(err.median()),
           tracking_error_end_by_joint_median=[
@@ -2998,10 +2932,8 @@ def mobile_main_path(card):
         return c
 
     # the eager reference: the same step as a Python loop
-    _reset_counts()
-    ce = eager(c0, nsteps)
-    torch.cuda.synchronize()
-    eager_counts = _counts()
+    with _launched() as eager_counts:
+        ce = eager(c0, nsteps)
     # the main path: scan_reduced, captured on its first call
     res = path_vs_eager(
         "mobile", lambda c, k: pmesh.scan_reduced(step, c, k), eager,
@@ -3361,12 +3293,11 @@ def manip_scale_size(m, nenv, nsteps, card):
     stir = _stir(nenv, m.nu, m.device, m.dtype)
     ends = torch.cat([torch.arange(SCALE_ENDS),
                       torch.arange(nenv - SCALE_ENDS, nenv)]).to(m.device)
-    _reset_counts()
-    with _Probe(capture_calls=(nsteps // 2, nsteps), rows=ends) as probe:
+    with _Probe(capture_calls=(nsteps // 2, nsteps), rows=ends) as probe, \
+            _launched() as counts:
         de = rollout_eager(m, d0, nsteps, ctrl_fn=stir)
-        torch.cuda.synchronize()
+    counts["mtv_query"] -= probe.own_mtv
     eager_peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
-    counts = _counts()
     ncon_max, pos = _manip_checks(m, de, probe, counts, nsteps, what)
     # the eager state's carried leaves on d0's others (a step reads no
     # other): the eager steps after it, without a second Data of the batch
@@ -3570,17 +3501,14 @@ def spawn_main_path(card):
     q_inactive0 = torch.cat([d0.qpos[:, a:a + 7] for a in inactive], 1)
 
     from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
-    _reset_counts()
-    torch.cuda.synchronize()
     # the eager reference; the solves of a step in the air and of two
     # steps at rest are kept
-    with _Probe(capture_calls=(50, 150, 250)) as probe:
+    with _Probe(capture_calls=(50, 150, 250)) as probe, _launched() as n_:
         d100 = rollout_eager(m, d0, 100)
         d = rollout_eager(m, d100, 200)
-        torch.cuda.synchronize()
-    launches = _counts()["chol_solve"]
+    launches = n_["chol_solve"]
     # the main path: parallel.rollout through the step graph, held to it
-    graph_counts = graph_vs_eager("spawn", m, d0, 300, d, card)["capture"]
+    graph_vs_eager("spawn", m, d0, 300, d, card)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d100 = mst.rollout(m, d0, 100)
@@ -3679,7 +3607,7 @@ def spawn_main_path(card):
           step_ms=1e3 * steps_s / 200, first_100_steps_s=t1 - t0,
           env_steps_per_s=n * 200 / steps_s,
           chol_launches=launches, chol_launches_per_step=launches / 300,
-          graph_launches=graph_counts, mask_flip_graph_vs_eager=flip_dev,
+          mask_flip_graph_vs_eager=flip_dev,
           max_rest_dev=zdev, inactive_still=True, healthy=True,
           saturated=0, auto_reset_mended=POISONED,
           checkpoint_mb=ck_mb, checkpoint_round_trip_s=ck_s,
@@ -3804,7 +3732,6 @@ def server_main_path(card):
     port's client, then a second server for cmd_vel."""
     import tempfile
     from mujoco_sim_tpu_torch.io.server import SimServer
-    from mujoco_sim_tpu_torch.ops import hull_sat
     from mujoco_sim_tpu_torch.runtime import config
     spec, m, sim, _ = config.build(
         {"world": WORLD, "robots": {"sball": {"path": BALL}},
@@ -3823,7 +3750,6 @@ def server_main_path(card):
         return sim.d
 
     sim.hot_swap = spy
-    _reset_counts()
     srv.start(run_sim=True)
     c = _Timed(srv.port)
     try:
@@ -3845,19 +3771,18 @@ def server_main_path(card):
         wall = time.perf_counter() - t_stream
         stream.close()
         nsteps = srv.steps - steps0
-        # the sim thread steps through its step graph: the wrappers count
-        # its warm-up call and its capture, not its replays
-        graph_launches = _counts()
         _alive(srv)
-        if nsteps == 0 or graph_launches["chol_solve"] == 0:
-            raise AssertionError(f"server: {graph_launches} launches for "
-                                 f"{nsteps} sim-thread steps")
+        if nsteps == 0:
+            raise AssertionError("server: no sim-thread step")
         # the sim thread's graph step held to the eager step at its own
         # state (under the lock, between two of its steps), and the
         # solves (nv = 24) of that eager step kept: RK4 runs collision 4
         # times a step
         probe_balls, graph_balls = _server_step_vs_eager(srv, sim, (1, 3),
                                                           "server_balls")
+        if not REPLAY_COUNTS["server_balls"]["chol_solve"]:
+            raise AssertionError("server: no chol_solve launch in a replay "
+                                 "of the sim thread's step graph")
         state = c.call("get_state", names=names)
         zs = [o["pose"]["position"][2] for o in state["objects"]]
         if len(zs) != 3 or max(abs(z - BALL_REST_Z) for z in zs) > \
@@ -3918,11 +3843,9 @@ def server_main_path(card):
         _until(lambda: srv.steps >= steps1 + 20, "20 steps after")
         # the solves (nv = 36 after the swap) and the cubes' face SAT of
         # an eager step at the sim thread's state, 20 steps on
-        sat0 = hull_sat.LAUNCHES
         probe_cubes, graph_cubes = _server_step_vs_eager(srv, sim, (1, 3),
                                                           "server_cubes")
-        sat_launches = hull_sat.LAUNCHES - sat0
-        sat_steps = 1
+        sat_launches = REPLAY_COUNTS["server_cubes"]["hull_ref_face_depth"]
         if sat_launches == 0:
             raise AssertionError("server: no hull_ref_face_depth launch "
                                  "with the two cubes in contact")
@@ -3931,7 +3854,6 @@ def server_main_path(card):
         sim_time = float(sim.d.time[0])
         if sim_time <= 0:
             raise AssertionError("server: sim time did not advance")
-        chol_total = _counts()["chol_solve"]
         c.call("destroy_objects", names=names[:2] + cube0 + cube1)
     finally:
         c.close()
@@ -3953,17 +3875,15 @@ def server_main_path(card):
           steps_per_s=nsteps / wall, rtf=nsteps * dt / wall,
           window_steps=nsteps, window_s=wall,
           step="the sim thread's step graph (one replay a step)",
-          graph_launches=graph_launches,
           graph_vs_eager=dict(balls=graph_balls, cube_pair=graph_cubes),
           get_state_latency=lat_idle,
           get_state_latency_with_30hz_subscriber=lat_sub,
           service_request_ms=service_ms, hot_swap_request_ms=swap_ms,
-          cube_pair_hull_ref_face_depth_launches=sat_launches,
-          cube_pair_steps=sat_steps, kernels_at_path_inputs=held,
+          cube_pair_hull_ref_face_depth_launches_per_step=sat_launches,
+          kernels_at_path_inputs=held,
           sim_thread_steps=steps_end, sim_time_after_reset=sim_time,
-          chol_launches=chol_total, odom=odom, card=card,
-          wall_s=t_end - t_stream)
-    return chol_total, sat_launches, sat_steps, held
+          odom=odom, card=card, wall_s=t_end - t_stream)
+    return sat_launches, held
 
 
 def odom_server(card):
@@ -4066,33 +3986,29 @@ def parallel_main_path(card):
     # a. the eager sharded rollout (each shard's rollout_eager), with two
     # steps of each shard's solves kept: the reference of the sharded
     # graphs
-    from mujoco_sim_tpu_torch.ops import loops
     from mujoco_sim_tpu_torch.parallel.rollout import rollout_eager
-    _reset_counts()
     torch.cuda.synchronize()
     with _Probe(capture_calls=[k * nsteps + s for k in range(
-            PARALLEL_SHARDS) for s in (20, 100)]) as probe:
+            PARALLEL_SHARDS) for s in (20, 100)]) as probe, \
+            _launched() as n_:
         t0 = time.perf_counter()
         eager = [rollout_eager(mR.on(dv), sh, nsteps)
                  for dv, sh in zip(mesh.local_devices, dS.shards)]
         torch.cuda.synchronize()
         eager_sharded_s = time.perf_counter() - t0
-    launches = _counts()["chol_solve"]
+    launches = n_["chol_solve"]
     if launches < PARALLEL_SHARDS * 2 * nsteps:
         raise AssertionError(f"parallel: chol_solve ran {launches} times "
                              f"in {nsteps} steps of {PARALLEL_SHARDS} "
                              "shards")
     # the main path: make_sharded_rollout, one step graph per shard, held
     # to the eager shards bit for bit; then timed on its captured graphs
-    _reset_counts()
-    loops.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, caps = _captures(lambda: run(mR, dS))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     pools, capture_s = [list(x) for x in zip(*caps)]
-    graph_counts = dict(_counts(), graph_loop=loops.LAUNCHES)
     shard_diff = max(float((o.qpos - e.qpos).abs().max()) for o, e in
                      zip(out.shards, eager))
     if shard_diff != 0.0:
@@ -4116,7 +4032,6 @@ def parallel_main_path(card):
         3)
     phase("parallel_graph", steps=nsteps, shards=PARALLEL_SHARDS,
           held="bit for bit, shard by shard", max_abs_diff_qpos=shard_diff,
-          launches_capture=graph_counts,
           replay_kernels=dict(_replay_record(rep, 3),
                               step="one step of each of the four shards"),
           sync_free_replay=True,
@@ -4424,7 +4339,7 @@ def main(argv):
         done("manip_scale")
     if want("runtime"):
         spawn_launches, spawn_held = spawn_main_path(card)
-        rt_launches, cube_sat, cube_steps, rt_held = server_main_path(card)
+        cube_sat, rt_held = server_main_path(card)
         loop_main_path(card)
         done("runtime")
     if want("parallel"):
@@ -4447,7 +4362,7 @@ def main(argv):
     kernels = [
         dict(name="chol_solve", route="cuda", source=src + "chol_solve.cu",
              replaces="mujoco_sim_tpu/ops/pallas_chol.py:40",
-             launches=GRAPH_COUNTS["manip"]["chol_solve"],
+             launches=REPLAY_COUNTS["manip"]["chol_solve"],
              launches_eager=counts["chol_solve"], max_abs_err=chol_err,
              terrain_capture=tsolves,
              ms=c42["ms"], device_ms=c42["device_ms"],
@@ -4458,7 +4373,6 @@ def main(argv):
              launches_precise_path=pcounts["chol_solve"],
              launches_pile_path=pile_counts["chol_solve"],
              launches_spawn_path=spawn_launches,
-             launches_runtime_path=rt_launches,
              launches_parallel_path=par_launches,
              parallel_capture=par_held["chol_solve_vs_f64"],
              spawn_capture=spawn_held["chol_solve_vs_f64"],
@@ -4469,14 +4383,13 @@ def main(argv):
         dict(name="hull_ref_face_depth", route="cuda",
              source=src + "hull_sat.cu",
              replaces="mujoco_sim_tpu/ops/pallas_sat.py:40",
-             launches=GRAPH_COUNTS["manip"]["hull_ref_face_depth"],
+             launches=REPLAY_COUNTS["manip"]["hull_ref_face_depth"],
              launches_eager=counts["hull_ref_face_depth"],
              launches_precise_path=pcounts["hull_ref_face_depth"],
              launches_terrain_path=tcounts["hull_ref_face_depth"],
              launches_runtime_cube_pair=cube_sat,
              runtime_cube_pair_max_abs_err=rt_held["cube_pair"][
                  "sat_max_abs_err"],
-             runtime_cube_pair_steps=cube_steps,
              max_abs_err=worst["hull_ref_face_depth"],
              ms=mm["ms"], device_ms=mm["device_ms"], plain_ms=mm["plain_ms"],
              bound_ms=mm["bound_ms"], bound_by=mm["bound_by"],
@@ -4488,7 +4401,7 @@ def main(argv):
                            bound_by=bm["bound_by"])),
         dict(name="mtv_query", route="cuda", source=src + "mtv_query.cu",
              replaces="mujoco_sim_tpu/ops/pallas_refine.py:73",
-             launches=GRAPH_COUNTS["manip"]["mtv_query"],
+             launches=REPLAY_COUNTS["manip"]["mtv_query"],
              launches_eager=counts["mtv_query"],
              launches_precise_path=pcounts["mtv_query"],
              launches_terrain_path=tcounts["mtv_query"],
@@ -4523,7 +4436,7 @@ def main(argv):
         # timed on the mass matrices of that rollout's final state
         dict(name="chol_factor", route="cuda", source=src + "chol_factor.cu",
              replaces="benchmarks/pallas_chol_proto.py:24",
-             launches=GRAPH_COUNTS["precise"]["chol_factor"],
+             launches=REPLAY_COUNTS["precise"]["chol_factor"],
              launches_eager=pcounts["chol_factor"], max_abs_err=fact_err,
              ms=fact_step_t["ms"], device_ms=fact_step_t["device_ms"],
              plain_ms=fact_step_t["plain_ms"],
@@ -4533,8 +4446,8 @@ def main(argv):
              ms_random_n42_N1024=fact_t[(42, MANIP_NENV)]["ms"],
              n66_N1024=f66, n128_N256=fact_t[(128, 256)]),
         # no step calls it: its path is its own entry point
-        # (scripts/torch_sat_proto.py), driven in face_sat_vs_plain with
-        # the count set to 0 just before and read just after
+        # (scripts/torch_sat_proto.py), driven and counted in
+        # face_sat_vs_plain
         dict(name="face_sat_depth", route="cuda", source=src + "face_sat.cu",
              replaces="benchmarks/pallas_sat_proto.py:28",
              launches=fsat_launches,
@@ -4544,14 +4457,12 @@ def main(argv):
              plain_ms=fsat_t["plain_ms"], bound_ms=fsat_t["bound_ms"],
              bound_by=fsat_t["bound_by"], library_ms=None),
         # the predicate of every captured while loop (two launches a
-        # WHILE node: before it and at the end of its body); counted over
-        # the box path's graph rollout (its captures), and per path
+        # WHILE node: before it and at the end of its body), a replayed
+        # manip step's
         dict(name="graph_loop", route="cuda", source=src + "graph_loop.cu",
              replaces="mujoco_sim_tpu/ops/solver.py:373",
-             launches=GRAPH_COUNTS["manip"]["graph_loop"],
+             launches=REPLAY_COUNTS["manip"]["graph_loop"],
              max_abs_err=gl_err,
-             launches_by_path={k: v["graph_loop"]
-                               for k, v in GRAPH_COUNTS.items()},
              ms=gl_t["ms"], device_ms=gl_t["device_ms"],
              plain_ms=gl_t["plain_ms"], bound_ms=gl_t["bound_ms"],
              bound_by=gl_t["bound_by"], library_ms=gl_t["library_ms"]),
@@ -4568,9 +4479,9 @@ def main(argv):
         # the lockstep loops and timed at the manip rollout's captures
         dict(name="newton_solve", route="cuda",
              source=src + "newton_solve.cu", replaces=None,
-             launches=GRAPH_COUNTS["manip"]["newton_solve"],
+             launches=REPLAY_COUNTS["manip"]["newton_solve"],
              launches_eager=counts["newton_solve"],
-             launches_box_path=GRAPH_COUNTS["box"]["newton_solve"],
+             launches_box_path=REPLAY_COUNTS["box"]["newton_solve"],
              launches_terrain_path=tcounts["newton_solve"],
              launches_precise_path=pcounts["newton_solve"],
              launches_pile_path=pile_counts["newton_solve"],
@@ -4585,14 +4496,12 @@ def main(argv):
              bound_ms=t["newton_solve"]["bound_ms"],
              bound_by=t["newton_solve"]["bound_by"], library_ms=None),
     ]
-    # by path: the wrappers' counts over each graph main path (its warm-up
-    # call and its capture; ``launches`` is the manip path's, or the
-    # kernel's own path's), and the launches a replayed step makes,
-    # counted on the card (hold_replay_counts); at scale, each kernel's device
-    # ms a replayed step beside its bound
+    # by path: the launches a replayed step makes, counted on the card
+    # (hold_replay_counts; ``launches`` is the manip path's, or the
+    # kernel's own path's); at scale, each kernel's device ms a replayed
+    # step beside its bound
     for k in kernels:
         name = k["name"]
-        k["launches_capture"] = {p: c[name] for p, c in GRAPH_COUNTS.items()}
         k["launches_per_replay_step"] = {p: c[name]
                                          for p, c in REPLAY_COUNTS.items()}
         if name in scale[MANIP_SCALE[0][0]]:

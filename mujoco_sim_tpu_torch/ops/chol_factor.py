@@ -12,7 +12,6 @@ ops/cuda_build.py at first use; its factor is the one chol_solve.cu runs,
 shared through csrc/chol_factor.cuh: register-resident up to n = 64, one
 block a system factored in panels of 32 columns above, any n >= 1) or raises; a CPU
 tensor takes the plain twin ``chol_factor_plain`` (ops/linalg.cholesky).
-``LAUNCHES`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -24,10 +23,6 @@ import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build, linalg
 from mujoco_sim_tpu_torch.runtime import profiler
-
-LAUNCHES = 0
-
-SOURCE = cuda_build.source_path("chol_factor")
 
 
 def chol_factor_plain(A: torch.Tensor) -> torch.Tensor:
@@ -49,7 +44,6 @@ def _load() -> ctypes.CDLL:
 def chol_factor_cuda(A: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: A (..., n, n) SPD -> L (..., n, n) lower,
     float32, contiguous, on a CUDA device, n >= 1."""
-    global LAUNCHES
     fn = "chol_factor_cuda"
     if A.dim() < 2 or A.shape[-2] != A.shape[-1]:
         raise ValueError(f"{fn}: shape {tuple(A.shape)}")
@@ -58,11 +52,8 @@ def chol_factor_cuda(A: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{fn}: n={n} must be at least 1")
     dev = cuda_build.check_f32_cuda(fn, A=A)
     L = torch.empty_like(A)
-    rc = cuda_build.launch(dev, _load().chol_factor_f32, A.data_ptr(),
-                           L.data_ptr(), A.numel() // (n * n), n)
-    if rc != 0:
-        raise RuntimeError(f"chol_factor kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    cuda_build.launch(dev, _load().chol_factor_f32, A.data_ptr(),
+                      L.data_ptr(), A.numel() // (n * n), n)
     profiler.count("chol_factor", dev)
     return L
 

@@ -21,10 +21,9 @@ import shutil
 import subprocess
 import tempfile
 import time
+from typing import NamedTuple
 
 import torch
-
-from mujoco_sim_tpu_torch.runtime import profiler
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -42,18 +41,40 @@ _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # sums and the shared factor use explicit fmaf).
 _NO_FMA = ("-fmad=false",)
 
-# kernel name -> (source file, extra flags)
+
+class Kernel(NamedTuple):
+    """A row of KERNELS: one hand-written kernel."""
+    source: str          # its .cu file under csrc/
+    flags: tuple         # nvcc flags beside _BASE_FLAGS
+    slot: str            # its launch count in runtime/profiler.SLOTS
+    functions: tuple     # the __global__ functions its source defines
+
+
+# every hand-written kernel, by the name ``load`` takes, in the order of
+# the recorder's launch counts (runtime/profiler.LAUNCH_COUNTS); a new
+# kernel is its .cu file, its wrapper under ops/ and a row here
 KERNELS = {
-    "chol_solve": ("chol_solve.cu", ()),
-    "chol_factor": ("chol_factor.cu", ()),
-    "hull_sat": ("hull_sat.cu", _NO_FMA),
-    "mtv_query": ("mtv_query.cu", _NO_FMA),
-    "support_minmax": ("support_minmax.cu", _NO_FMA),
-    "face_sat": ("face_sat.cu", _NO_FMA),
-    "graph_loop": ("graph_loop.cu", ()),
-    "trace_stamp": ("trace_stamp.cu", ()),
-    "feature_clip": ("feature_clip.cu", _NO_FMA),
-    "newton_solve": ("newton_solve.cu", _NO_FMA),
+    "chol_solve": Kernel("chol_solve.cu", (), "chol_solve", (
+        "chol_solve_kernel", "chol_solve_panel_kernel",
+        "chol_solve_work_kernel")),
+    "chol_factor": Kernel("chol_factor.cu", (), "chol_factor", (
+        "chol_factor_kernel", "chol_factor_panel_kernel",
+        "chol_factor_work_kernel")),
+    "hull_sat": Kernel("hull_sat.cu", _NO_FMA, "hull_ref_face_depth",
+                       ("hull_sat_kernel",)),
+    "face_sat": Kernel("face_sat.cu", _NO_FMA, "face_sat_depth",
+                       ("face_sat_kernel",)),
+    "mtv_query": Kernel("mtv_query.cu", _NO_FMA, "mtv_query",
+                        ("mtv_query_kernel", "mtv_query_block_kernel")),
+    "support_minmax": Kernel("support_minmax.cu", _NO_FMA, "support_minmax",
+                             ("support_minmax_kernel",)),
+    "graph_loop": Kernel("graph_loop.cu", (), "graph_loop", ("set_any",)),
+    "trace_stamp": Kernel("trace_stamp.cu", (), "trace_stamp",
+                          ("trace_stamp_kernel",)),
+    "feature_clip": Kernel("feature_clip.cu", _NO_FMA, "feature_clip",
+                           ("feature_clip_kernel",)),
+    "newton_solve": Kernel("newton_solve.cu", _NO_FMA, "newton_solve",
+                           ("newton_solve_kernel",)),
 }
 HEADERS = ("support.cuh", "chol_factor.cuh", "async_copy.cuh", "face_sat.cuh")
 
@@ -62,7 +83,7 @@ BUILD_INFO: dict = {}
 
 
 def source_path(name: str) -> str:
-    return os.path.join(CSRC_DIR, KERNELS[name][0])
+    return os.path.join(CSRC_DIR, KERNELS[name].source)
 
 
 def nvcc() -> str:
@@ -75,7 +96,7 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    src, flags = KERNELS[name]
+    src, flags = KERNELS[name][:2]
     h = hashlib.sha256()
     for fname in (src,) + HEADERS:
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
@@ -84,14 +105,20 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
-@profiler.spanned("cuda_build.build_all")
 def build_all() -> dict:
     """Compile every kernel that is not built yet, all nvcc processes
     running at once; fills and returns BUILD_INFO.  Raises with nvcc's
     output if any source fails to compile."""
+    # imported here: runtime/profiler builds its launch counts from KERNELS
+    from mujoco_sim_tpu_torch.runtime import profiler
+    with profiler.span("cuda_build.build_all"):
+        return _build_all()
+
+
+def _build_all() -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     running = []
-    for name, (src, flags) in KERNELS.items():
+    for name, (src, flags, *_) in KERNELS.items():
         out = _target(name)
         if os.path.exists(out):
             BUILD_INFO.setdefault(name, dict(path=out, seconds=0.0, ptxas=""))
@@ -107,7 +134,7 @@ def build_all() -> dict:
         _, err = proc.communicate()
         try:
             if proc.returncode != 0:
-                failed.append(f"nvcc failed on {KERNELS[name][0]}:\n{err}")
+                failed.append(f"nvcc failed on {KERNELS[name].source}:\n{err}")
                 continue
             os.replace(tmp, out)  # atomic: a concurrent build never sees half
             BUILD_INFO[name] = dict(path=out, ptxas=err,
@@ -135,7 +162,7 @@ def build_variant(name: str, tag: str, edits) -> ctypes.CDLL:
     own flags into ``_build/{name}_{tag}.so`` and loaded.  For measurement
     scripts that time or stamp a variant of the shipped kernel; the
     caller sets argtypes."""
-    src_file, flags = KERNELS[name]
+    src_file, flags = KERNELS[name][:2]
     with open(os.path.join(CSRC_DIR, src_file)) as f:
         src = f.read()
     for old, new in edits:
@@ -154,15 +181,25 @@ def build_variant(name: str, tag: str, edits) -> ctypes.CDLL:
     return ctypes.CDLL(so)
 
 
-def launch(dev, cfn, *args) -> int:
+def check(rc: int, entry: str) -> None:
+    """Raise unless the cudaError_t ``rc`` that the C entry ``entry``
+    returned is 0 (cudaSuccess)."""
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {rc}")
+
+
+def launch(dev, cfn, *args) -> None:
     """Call the kernel's C entry ``cfn(*args, stream)`` on PyTorch's current
-    stream of ``dev`` and return its cudaError_t.  A kernel launches on the
-    current device, so ``dev`` is made current for the call when it is not;
-    when it already is (the usual case) the device guard is skipped."""
+    stream of ``dev``; raises if it returns an error (``check``).  A kernel
+    launches on the current device, so ``dev`` is made current for the
+    call when it is not; when it already is (the usual case) the device
+    guard is skipped."""
     if torch.cuda.current_device() == dev.index:
-        return cfn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    with torch.cuda.device(dev):
-        return cfn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+        rc = cfn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = cfn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    check(rc, cfn.__name__)
 
 
 def check_f32_cuda(fn: str, **tensors):

@@ -14,8 +14,7 @@ scripts/torch_sat_proto.py.
 
 ``face_sat_depth`` picks its path from the tensor's device, never from a
 switch: a CUDA tensor launches csrc/face_sat.cu (built by ops/cuda_build.py
-at first use) or raises; a CPU tensor takes the plain twin.  ``LAUNCHES``
-counts kernel launches and nothing else.
+at first use) or raises; a CPU tensor takes the plain twin.
 """
 
 from __future__ import annotations
@@ -29,8 +28,6 @@ from mujoco_sim_tpu_torch.ops import cuda_build
 from mujoco_sim_tpu_torch.ops.hull_sat import SMEM_BYTES, smem_fits
 from mujoco_sim_tpu_torch.runtime import profiler
 
-LAUNCHES = 0
-SOURCE = cuda_build.source_path("face_sat")
 _BIG = 1e9
 
 
@@ -83,7 +80,6 @@ def _load() -> ctypes.CDLL:
 def face_sat_depth_cuda(pts, planes, vmask, K=2):
     """Launch the CUDA kernel.  pts (..., V, 3), planes (..., F, 4), vmask
     (..., V): float32, contiguous, on one CUDA device."""
-    global LAUNCHES
     fn = "face_sat_depth_cuda"
     lead = pts.shape[:-2]
     V, F, K = pts.shape[-2], planes.shape[-2], int(K)
@@ -104,14 +100,11 @@ def face_sat_depth_cuda(pts, planes, vmask, K=2):
     idx = torch.empty(lead + (K,), dtype=torch.int32, device=dev)
     plane = torch.empty(lead + (4,), dtype=torch.float32, device=dev)
     sep = torch.empty(lead, dtype=torch.float32, device=dev)
-    rc = cuda_build.launch(
+    cuda_build.launch(
         dev, _load().face_sat_f32,
         pts.data_ptr(), planes.data_ptr(), vmask.data_ptr(),
         depth.data_ptr(), idx.data_ptr(), plane.data_ptr(),
         sep.data_ptr(), N, V, F, K)
-    if rc != 0:
-        raise RuntimeError(f"face_sat kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
     profiler.count("face_sat_depth", dev)
     return depth, idx, plane, sep
 

@@ -9,7 +9,7 @@ its normal, an optional lateral filter and the K smallest depths.
 ``hull_ref_face_depth`` picks its path from the tensor's device, never
 from a switch: a CUDA tensor launches csrc/hull_sat.cu (built by
 ops/cuda_build.py at first use) or raises; a CPU tensor takes the plain
-twin.  ``LAUNCHES`` counts kernel launches and nothing else.
+twin.
 """
 
 from __future__ import annotations
@@ -22,8 +22,6 @@ import torch
 from mujoco_sim_tpu_torch.ops import cuda_build
 from mujoco_sim_tpu_torch.runtime import profiler
 
-LAUNCHES = 0
-SOURCE = cuda_build.source_path("hull_sat")
 # the opt-in shared memory of one block on the H100 (and H200)
 SMEM_BYTES = 232448
 
@@ -119,7 +117,6 @@ def hull_ref_face_depth_cuda(pts_local, planes, k_out, pts_mask=None,
     contiguous, on one CUDA device.  A missing mask and a float slack reach
     the kernel as a null pointer and a float: nothing is allocated but the
     outputs."""
-    global LAUNCHES
     fn = "hull_ref_face_depth_cuda"
     lead = pts_local.shape[:-2]
     V, F, K = pts_local.shape[-2], planes.shape[-2], int(k_out)
@@ -153,16 +150,13 @@ def hull_ref_face_depth_cuda(pts_local, planes, k_out, pts_mask=None,
     idx = torch.empty(lead + (K,), dtype=torch.int64, device=dev)
     nref = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
     sep = torch.empty(lead, dtype=torch.float32, device=dev)
-    rc = cuda_build.launch(
+    cuda_build.launch(
         dev, _load().hull_sat_f32,
         pts_local.data_ptr(), planes.data_ptr(),
         None if pts_mask is None else pts_mask.data_ptr(),
         operands["slack"].data_ptr() if "slack" in operands else None,
         depth.data_ptr(), idx.data_ptr(), nref.data_ptr(), sep.data_ptr(),
         N, V, F, K, int(bool(lateral_filter)), slack_scalar)
-    if rc != 0:
-        raise RuntimeError(f"hull_sat kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
     profiler.count("hull_ref_face_depth", dev)
     return depth, idx, nref, sep
 

@@ -25,10 +25,10 @@ discarded branch: ``torch.where`` selects and never multiplies by a mask.
 A capture must route the allocations of the loop bodies, which run on
 the body streams, into the graph's memory pool: ``capture`` (used by
 StepGraph) does that, and ``while_loop`` refuses a capture it did not
-open.  ``LAUNCHES`` counts the predicate kernel's launches (two a node:
-one before it, one at the end of its body), and nothing else; the counts
-kept on the card (profiler.count) add one a replay for the
-first and one an iteration for the second.  A loop given a ``name``
+open.  Where the recorder counts (runtime/profiler.count), the predicate
+kernel's launches add to ``graph_loop`` on the card: one a replay for the
+launch before a node and one an iteration for the launch at the end of
+its body.  A loop given a ``name``
 (runtime/profiler.LOOPS) also counts, where the recorder counts, its
 iterations and the envs active in each (``profiler.count_iteration``, in
 the body: a node of the WHILE body inside a capture).
@@ -47,8 +47,6 @@ import torch
 from mujoco_sim_tpu_torch.ops import cuda_build
 from mujoco_sim_tpu_torch.runtime import profiler
 
-LAUNCHES = 0
-SOURCE = cuda_build.source_path("graph_loop")
 MAX_DEPTH = 3          # nesting depth of loops inside one capture
 
 _STATE = threading.local()
@@ -76,15 +74,11 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
-def _check(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"graph_loop: {what} failed: cudaError {rc}")
-
-
 def driver_version() -> int:
     """The CUDA driver's version as an integer (12080 is 12.8)."""
     v = ctypes.c_int()
-    _check(_load().graph_loop_driver_version(ctypes.byref(v)), "version")
+    cuda_build.check(_load().graph_loop_driver_version(ctypes.byref(v)),
+                     "graph_loop_driver_version")
     return v.value
 
 
@@ -92,15 +86,12 @@ def any_cuda(mask: torch.Tensor) -> torch.Tensor:
     """The predicate kernel with its flag written to memory: an int32 0-d
     tensor, 1 where any byte of the bool ``mask`` is set (the check of the
     kernel against ``any_plain``)."""
-    global LAUNCHES
     if not mask.is_cuda or mask.dtype != torch.bool:
         raise ValueError("any_cuda: a bool CUDA tensor")
     mask = mask.contiguous()
     out = torch.empty((), dtype=torch.int32, device=mask.device)
-    _check(cuda_build.launch(mask.device, _load().graph_loop_any,
-                             mask.data_ptr(), mask.numel(), out.data_ptr()),
-           "any")
-    LAUNCHES += 1
+    cuda_build.launch(mask.device, _load().graph_loop_any, mask.data_ptr(),
+                      mask.numel(), out.data_ptr())
     profiler.count("graph_loop", mask.device)
     return out
 
@@ -112,7 +103,8 @@ def _body_stream(device_index: int, depth: int) -> torch.cuda.ExternalStream:
     made here, outside any capture, by one small product of each kind."""
     ptr = ctypes.c_void_p()
     with torch.cuda.device(device_index):
-        _check(_load().graph_loop_stream(ctypes.byref(ptr)), "stream")
+        cuda_build.check(_load().graph_loop_stream(ctypes.byref(ptr)),
+                         "graph_loop_stream")
         s = torch.cuda.ExternalStream(ptr.value, device=device_index)
         s.wait_stream(torch.cuda.current_stream(device_index))
         with torch.cuda.stream(s):
@@ -160,7 +152,6 @@ def while_loop(cond_fn, body_fn, carry, name: str | None = None):
 
 
 def _while_node(cond_fn, body_fn, carry, active, name):
-    global LAUNCHES
     if not getattr(_STATE, "routed", False):
         raise RuntimeError(
             "while_loop under a CUDA-graph capture needs the capture of "
@@ -174,10 +165,9 @@ def _while_node(cond_fn, body_fn, carry, active, name):
     body = _body_stream(dev.index, depth)
     parent = torch.cuda.current_stream(dev)
     handle = ctypes.c_ulonglong()
-    _check(lib.graph_loop_begin(active.data_ptr(), active.numel(),
-                                parent.cuda_stream, body.cuda_stream,
-                                ctypes.byref(handle)), "begin")
-    LAUNCHES += 1
+    cuda_build.check(lib.graph_loop_begin(
+        active.data_ptr(), active.numel(), parent.cuda_stream,
+        body.cuda_stream, ctypes.byref(handle)), "graph_loop_begin")
     # counted after the node: once a replay (profiler.count)
     profiler.count("graph_loop", dev)
     _STATE.depth = depth + 1
@@ -186,9 +176,9 @@ def _while_node(cond_fn, body_fn, carry, active, name):
             _iterate(cond_fn, body_fn, carry, active, name)
             # in the body: once an iteration
             profiler.count("graph_loop", dev)
-        _check(lib.graph_loop_end(active.data_ptr(), active.numel(),
-                                  handle.value, body.cuda_stream), "end")
-        LAUNCHES += 1
+        cuda_build.check(lib.graph_loop_end(
+            active.data_ptr(), active.numel(), handle.value,
+            body.cuda_stream), "graph_loop_end")
     finally:
         _STATE.depth = depth
 

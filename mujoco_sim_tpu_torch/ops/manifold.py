@@ -49,10 +49,6 @@ from mujoco_sim_tpu_torch.ops import support_minmax as support_mod
 from mujoco_sim_tpu_torch.ops.math import cross, norm
 from mujoco_sim_tpu_torch.runtime import profiler
 
-# launches of the feature-clip kernel (csrc/feature_clip.cu), and nothing
-# else
-LAUNCHES = 0
-
 # feature window as a fraction of hull bounding radius (the ~1e-3 rad
 # multiCCD tilt; calibrated on cube probes: 0.05 deg tilt keeps the face
 # feature, 0.1 deg drops it)
@@ -495,7 +491,6 @@ def feature_clip_cuda(wA, wB, vertsA, vertsB, vmaskA, vmaskB, nfA, nfB,
     """Launch the CUDA kernel: the float tensors float32, hidA/hidB int64,
     enabled bool, every one contiguous on one CUDA device, the per-lane
     ones with the same leading lane dims; fpoly (nh, F, 16, 3) shared."""
-    global LAUNCHES
     fn = "feature_clip_cuda"
     lead = wA.shape[:-2]
     V, F = wA.shape[-2], nfA.shape[-2]
@@ -530,14 +525,10 @@ def feature_clip_cuda(wA, wB, vertsA, vertsB, vmaskA, vmaskB, nfA, nfB,
     n_out = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
     ok = torch.empty(lead, dtype=torch.bool, device=dev)
     sepd = torch.empty(lead, dtype=torch.float32, device=dev)
-    rc = cuda_build.launch(
+    cuda_build.launch(
         dev, _load().feature_clip_f32, *[t.data_ptr() for t in got],
         dist.data_ptr(), pos.data_ptr(), n_out.data_ptr(), ok.data_ptr(),
         sepd.data_ptr(), depth.numel(), V, F)
-    if rc != 0:
-        raise RuntimeError(f"feature_clip kernel launch failed: "
-                           f"cudaError {rc}")
-    LAUNCHES += 1
     profiler.count("feature_clip", dev)
     return dist, pos, n_out, ok, sepd
 

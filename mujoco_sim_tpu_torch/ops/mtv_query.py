@@ -24,8 +24,7 @@ a warp's share of 47 KB of shared memory: one warp per instance, four axes
 scanned per vertex load; larger tables, of any size: one block of eight
 warps per instance, its tables staged where they fit half the card's
 shared memory and read from device memory where they do not) or raises; a
-CPU tensor takes the plain twin.  ``LAUNCHES``
-counts kernel launches and nothing else.
+CPU tensor takes the plain twin.
 """
 
 from __future__ import annotations
@@ -39,8 +38,6 @@ from mujoco_sim_tpu_torch.ops import cuda_build
 from mujoco_sim_tpu_torch.ops.support_minmax import support_minmax_plain
 from mujoco_sim_tpu_torch.runtime import profiler
 
-LAUNCHES = 0
-SOURCE = cuda_build.source_path("mtv_query")
 K_EDGE = 16         # refinement edges per hull per round
 REFINE_ROUNDS = 2
 
@@ -190,7 +187,6 @@ def mtv_query_cuda(wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB,
                    rounds=REFINE_ROUNDS):
     """Launch the CUDA kernel; every tensor float32, contiguous, on one
     CUDA device, with the same leading instance dims."""
-    global LAUNCHES
     fn = "mtv_query_cuda"
     lead = wA.shape[:-2]
     V, E, F = wA.shape[-2], heA.shape[-3], nfA.shape[-2]
@@ -216,14 +212,11 @@ def mtv_query_cuda(wA, wB, heA, heB, hmA, hmB, nfA, nfB, fmA, fmB,
     # the block layout's two turn counters, zero at the launch
     turns = (torch.zeros(2, dtype=torch.int64, device=dev)
              if lib.mtv_query_block_layout(V, E, F, K) else None)
-    rc = cuda_build.launch(
+    cuda_build.launch(
         dev, lib.mtv_query_f32, *[t.data_ptr() for t in got],
         depth.data_ptr(), n.data_ptr(),
         None if turns is None else turns.data_ptr(), depth.numel(), V, E, F,
         K, rounds)
-    if rc != 0:
-        raise RuntimeError(f"mtv_query kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
     profiler.count("mtv_query", dev)
     return depth, n
 

@@ -9,10 +9,6 @@ line searches to that env's own stop, an env a block, in one launch: the
 lockstep loops of ``solver._newton_lockstep`` (a WHILE node over the whole
 batch, the line search's nested in it) are its plain twin, which the CPU,
 elliptic models and nv > 64 keep.
-
-``LAUNCHES`` counts kernel launches (and nothing else); where the recorder
-counts, each launch also adds one to ``newton_solve`` on the card
-(runtime/profiler.count).
 """
 
 from __future__ import annotations
@@ -25,9 +21,7 @@ import torch
 from mujoco_sim_tpu_torch.ops import cuda_build
 from mujoco_sim_tpu_torch.runtime import profiler
 
-LAUNCHES = 0
 MAX_NV = 64           # csrc/newton_solve.cu's kMaxNv
-SOURCE = cuda_build.source_path("newton_solve")
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,7 +49,6 @@ def newton_solve_cuda(M, a_smooth, J, D, efc_type, floss, floss_active,
     floss_active (B, nefc) bool; the carry a (B, nv), x (B, nefc), cost
     (B,) float32; all on one CUDA device, 1 <= nv <= 64.  Returns (a, x,
     iterations, line-search steps summed), the last two (B,) int32."""
-    global LAUNCHES
     fn = "newton_solve_cuda"
     if J.dim() != 3:
         raise ValueError(f"{fn}: J must be (B, nefc, nv), got "
@@ -89,15 +82,10 @@ def newton_solve_cuda(M, a_smooth, J, D, efc_type, floss, floss_active,
     ls_iters = torch.empty(B, dtype=torch.int32, device=dev)
     ptrs = [M, a_smooth, J, D, efc_type, floss, floss_active, a, x, cost,
             a_out, x_out, iters, ls_iters]
-    rc = cuda_build.launch(dev, lib.newton_solve_f32,
-                           *[t.data_ptr() for t in ptrs], B, nv, nefc,
-                           float(tolerance), float(ls_tolerance),
-                           int(iterations), int(ls_iterations))
-    if rc != 0:
-        raise RuntimeError(f"newton_solve kernel launch failed: "
-                           f"cudaError {rc} at (B, nefc, nv) = "
-                           f"{(B, nefc, nv)}")
-    LAUNCHES += 1
+    cuda_build.launch(dev, lib.newton_solve_f32,
+                      *[t.data_ptr() for t in ptrs], B, nv, nefc,
+                      float(tolerance), float(ls_tolerance), int(iterations),
+                      int(ls_iterations))
     profiler.count("newton_solve", dev)
     return a_out, x_out, iters, ls_iters
 

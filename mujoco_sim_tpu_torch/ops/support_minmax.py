@@ -11,7 +11,6 @@ launches csrc/support_minmax.cu (built by ops/cuda_build.py at first use;
 a persistent grid of warps, teams of 8 lanes x 9 axes an instance up to
 C = 72 and a warp of 32 lanes x 8 axes beyond, vertices staged as float4
 and double-buffered, any V) or raises; a CPU tensor takes the plain twin.
-``LAUNCHES`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -23,9 +22,6 @@ import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build
 from mujoco_sim_tpu_torch.runtime import profiler
-
-LAUNCHES = 0
-SOURCE = cuda_build.source_path("support_minmax")
 
 
 def support_minmax_plain(axes: torch.Tensor, w: torch.Tensor):
@@ -51,7 +47,6 @@ def _load() -> ctypes.CDLL:
 def support_minmax_cuda(axes: torch.Tensor, w: torch.Tensor):
     """Launch the CUDA kernel: axes (..., C, 3), w (..., V, 3), float32,
     contiguous, on one CUDA device, same leading dims."""
-    global LAUNCHES
     fn = "support_minmax_cuda"
     lead = axes.shape[:-2]
     if (axes.dim() < 3 or axes.shape[-1] != 3 or w.shape[-1] != 3
@@ -67,13 +62,9 @@ def support_minmax_cuda(axes: torch.Tensor, w: torch.Tensor):
         N *= s
     mn = torch.empty(lead + (C,), dtype=torch.float32, device=dev)
     mx = torch.empty(lead + (C,), dtype=torch.float32, device=dev)
-    rc = cuda_build.launch(
+    cuda_build.launch(
         dev, _load().support_minmax_f32,
         axes.data_ptr(), w.data_ptr(), mn.data_ptr(), mx.data_ptr(), N, C, V)
-    if rc != 0:
-        raise RuntimeError(f"support_minmax kernel launch failed: "
-                           f"cudaError {rc}")
-    LAUNCHES += 1
     profiler.count("support_minmax", dev)
     return mn, mx
 

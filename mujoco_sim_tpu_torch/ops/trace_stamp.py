@@ -6,7 +6,7 @@ Replaces no TPU kernel: csrc/trace_stamp.cu writes the card's
 names (its step count, read on the card, so each replay of a captured
 step writes its own row) and adds one to its own launch count there.  On
 a CPU ring the plain twin ``stamp_plain`` writes the host time it is
-given.  ``LAUNCHES`` counts kernel launches and nothing else.
+given.
 """
 
 from __future__ import annotations
@@ -17,10 +17,6 @@ import functools
 import torch
 
 from mujoco_sim_tpu_torch.ops import cuda_build
-
-LAUNCHES = 0
-
-SOURCE = cuda_build.source_path("trace_stamp")
 
 
 def stamp_plain(ring: torch.Tensor, table: torch.Tensor, slot: int,
@@ -47,7 +43,6 @@ def stamp_cuda(ring: torch.Tensor, table: torch.Tensor, slot: int,
                step_slot: int, count_slot: int):
     """Launch the kernel: ring (rows, slots) and table (n,), int64,
     contiguous, on one CUDA device."""
-    global LAUNCHES
     for name, t in (("ring", ring), ("table", table)):
         if (not t.is_cuda or t.dtype != torch.int64
                 or not t.is_contiguous() or t.device != ring.device):
@@ -58,10 +53,6 @@ def stamp_cuda(ring: torch.Tensor, table: torch.Tensor, slot: int,
             and 0 <= count_slot < table.numel()):
         raise ValueError(f"stamp_cuda: slot {slot}, step {step_slot} or "
                          f"count {count_slot} out of range")
-    rc = cuda_build.launch(ring.device, _load().trace_stamp, ring.data_ptr(),
-                           table.data_ptr(), rows, slots, slot, step_slot,
-                           count_slot)
-    if rc != 0:
-        raise RuntimeError(f"trace_stamp kernel launch failed: cudaError "
-                           f"{rc}")
-    LAUNCHES += 1
+    cuda_build.launch(ring.device, _load().trace_stamp, ring.data_ptr(),
+                      table.data_ptr(), rows, slots, slot, step_slot,
+                      count_slot)

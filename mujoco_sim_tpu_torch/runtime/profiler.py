@@ -58,12 +58,12 @@ import time
 
 import torch
 
-# the hand-written kernels' launch counts first, by their wrappers' names
-# (each wrapper adds one where it launches the kernel: ``count``)
-LAUNCH_COUNTS = ("chol_solve", "chol_factor", "hull_ref_face_depth",
-                 "face_sat_depth", "mtv_query", "support_minmax",
-                 "graph_loop", "trace_stamp", "feature_clip",
-                 "newton_solve")
+from mujoco_sim_tpu_torch.ops import cuda_build
+
+# the hand-written kernels' launch counts first, by their slots in
+# ops/cuda_build.KERNELS (each wrapper adds one where it launches the
+# kernel: ``count``)
+LAUNCH_COUNTS = tuple(k.slot for k in cuda_build.KERNELS.values())
 # the named loops of the step (ops/loops.while_loop's ``name``)
 LOOPS = ("newton", "linesearch", "bracket", "gjk")
 SLOTS = LAUNCH_COUNTS + tuple(

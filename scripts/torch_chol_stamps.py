@@ -129,11 +129,9 @@ def main():
         st = torch.zeros(N * SLOTS, dtype=torch.int64, device="cuda")
         x = torch.empty_like(b)
         lib.chol_set_stamps(st.data_ptr())
-        rc = cuda_build.launch(A.device, lib.chol_solve_f32, A.data_ptr(),
-                               b.data_ptr(), x.data_ptr(), None, N, n)
+        cuda_build.launch(A.device, lib.chol_solve_f32, A.data_ptr(),
+                          b.data_ptr(), x.data_ptr(), None, N, n)
         torch.cuda.synchronize()
-        if rc != 0:
-            raise RuntimeError(f"stamped chol_solve: cudaError {rc}")
         err = float((x - chol.chol_solve_plain(A, b)).abs().max())
         if err > 1e-3:
             raise AssertionError(f"stamped chol_solve disagrees: {err}")

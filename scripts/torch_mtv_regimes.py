@@ -52,11 +52,9 @@ def _runner(cfn, args):
 
     def run():
         turns.zero_()  # the block layout's turn counters
-        rc = cuda_build.launch(args[0].device, cfn, *ptrs, depth.data_ptr(),
-                               n.data_ptr(), turns.data_ptr(), N, V, E, F,
-                               mtv_query.K_EDGE, mtv_query.REFINE_ROUNDS)
-        if rc != 0:
-            raise RuntimeError(f"mtv_query launch failed: cudaError {rc}")
+        cuda_build.launch(args[0].device, cfn, *ptrs, depth.data_ptr(),
+                          n.data_ptr(), turns.data_ptr(), N, V, E, F,
+                          mtv_query.K_EDGE, mtv_query.REFINE_ROUNDS)
     return run, depth, n
 
 

@@ -42,9 +42,10 @@ sys.path.insert(0, ROOT)
 
 import mujoco_sim_tpu_torch as mst  # noqa: E402
 from mujoco_sim_tpu_torch import engine  # noqa: E402
-from mujoco_sim_tpu_torch.ops import (chol, chol_factor, collision,  # noqa: E402
-                                      constraint, hull_sat, mtv_query, noslip,
-                                      sensor, smooth, solver)
+from mujoco_sim_tpu_torch.ops import (collision, constraint,  # noqa: E402
+                                      cuda_build, noslip, sensor, smooth,
+                                      solver)
+from mujoco_sim_tpu_torch.runtime import profiler  # noqa: E402
 
 SCENES = {"manip": ("manip_bin6.xml", 1024, 150),
           "precise": ("manip_bin6_precise.xml", 1024, 150),
@@ -138,20 +139,21 @@ def main():
     torch.cuda.set_sync_debug_mode("default")
     syncs = sum("synchroniz" in str(w.message).lower() for w in caught) / 3
 
-    # ---- kernels and device time per step
-    for mod in (chol, chol_factor, hull_sat, mtv_query):
-        mod.LAUNCHES = 0
+    # ---- the hand-written kernels' launches (the recorder's table), then
+    # kernels and device time per step
     nprof = 5
+    with profiler.counting(m.device):
+        c0 = profiler.counts(m.device)
+        for _ in range(nprof):
+            one_step(d)
+        c1 = profiler.counts(m.device)
+    hand = {k: (c1[k] - c0[k]) / nprof for k in profiler.LAUNCH_COUNTS}
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(nprof):
             one_step(d)
         torch.cuda.synchronize()
-    hand = dict(chol_solve=chol.LAUNCHES / nprof,
-                chol_factor=chol_factor.LAUNCHES / nprof,
-                hull_ref_face_depth=hull_sat.LAUNCHES / nprof,
-                mtv_query=mtv_query.LAUNCHES / nprof)
     ev = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.device_time for e in ev) / 1e3 / nprof
@@ -160,12 +162,14 @@ def main():
         key = _short(e.name)
         by_name[key] = by_name.get(key, 0.0) + e.device_time
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    # each wrapper's kernels by their names' prefix (chol_solve_kernel and
-    # chol_solve_big_kernel are both chol_solve's)
-    prefix = dict(chol_solve="chol_solve_", chol_factor="chol_factor_",
-                  hull_ref_face_depth="hull_sat_", mtv_query="mtv_query_")
-    hand_ms = {k: sum(v for n, v in by_name.items() if n.startswith(
-        prefix[k])) / 1e3 / nprof for k in hand}
+    # each kernel's __global__ functions, by ops/cuda_build.KERNELS
+    slot_of = {g: k.slot for k in cuda_build.KERNELS.values()
+               for g in k.functions}
+    hand_ms = dict.fromkeys(hand, 0.0)
+    for n, v in by_name.items():
+        slot = slot_of.get(n.split("::")[-1])
+        if slot:
+            hand_ms[slot] += v / 1e3 / nprof
 
     out = dict(
         scene=xml, nenv=nenv, dtype="float32", card=card,

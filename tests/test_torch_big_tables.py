@@ -24,6 +24,7 @@ from mujoco_sim_tpu.ops.pallas_refine import mtv_query as pallas_mtv
 from mujoco_sim_tpu.ops.pallas_support import support_minmax as pallas_smm
 from mujoco_sim_tpu_torch.ops import mtv_query
 from mujoco_sim_tpu_torch.ops import support_minmax as smm
+from mujoco_sim_tpu_torch.runtime import profiler
 from mujoco_sim_tpu_torch.utils import kernel_cases
 from tests.torch_threads import one_thread  # noqa: F401 (autouse)
 
@@ -137,9 +138,10 @@ def test_support_minmax_cpu_takes_the_twin(C):
     rng = np.random.default_rng(C)
     axes = torch.tensor(rng.normal(size=(3, C, 3)).astype(F32))
     w = torch.tensor(rng.normal(size=(3, 40, 3)).astype(F32))
-    before = smm.LAUNCHES
-    mn, mx = smm.support_minmax(axes, w)
+    with profiler.counting("cpu"):
+        before = profiler.counts("cpu")["support_minmax"]
+        mn, mx = smm.support_minmax(axes, w)
+        assert profiler.counts("cpu")["support_minmax"] == before
     rn, rx = smm.support_minmax_plain(axes, w)
-    assert smm.LAUNCHES == before
     assert torch.equal(mn, rn) and torch.equal(mx, rx)
     assert mn.shape == (3, C) and bool((mn <= mx).all())

@@ -5,6 +5,7 @@ There, run it without the jax-importing conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import contextlib
 import pathlib
 import types
 
@@ -28,6 +29,19 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def launched(dev):
+    """The hand-written kernels launched on ``dev`` inside the block, by
+    the recorder's table (profiler.counting): a dict by slot, filled on
+    exit."""
+    n = {}
+    with profiler.counting(dev):
+        c0 = profiler.counts(dev)
+        yield n
+        c1 = profiler.counts(dev)
+    n.update({k: c1[k] - c0[k] for k in profiler.LAUNCH_COUNTS})
 
 
 def _spd_batch(rng, N, n):
@@ -61,10 +75,9 @@ def test_kernel_matches_plain_twin(case, cuda_device):
     A, b = _case(case)
     At = torch.tensor(A, dtype=torch.float32, device=cuda_device)
     bt = torch.tensor(b, dtype=torch.float32, device=cuda_device)
-    before = chol.LAUNCHES
-    x = chol.chol_solve(At, bt)
-    torch.cuda.synchronize()
-    assert chol.LAUNCHES == before + 1
+    with launched(cuda_device) as n:
+        x = chol.chol_solve(At, bt)
+    assert n["chol_solve"] == 1
     assert bool(torch.isfinite(x).all())
     torch.testing.assert_close(x, chol.chol_solve_plain(At, bt),
                                rtol=2e-5, atol=2e-5)
@@ -120,12 +133,10 @@ def test_chol_kernels_above_the_size_classes(case, cuda_device):
     A, b = kernel_cases.chol_big_case(case)
     At = torch.tensor(A, dtype=torch.float32, device=cuda_device)
     bt = torch.tensor(b, dtype=torch.float32, device=cuda_device)
-    before = chol.LAUNCHES, chol_factor.LAUNCHES
-    x = chol.chol_solve(At, bt)
-    L = chol_factor.chol_factor(At)
-    torch.cuda.synchronize()
-    assert (chol.LAUNCHES, chol_factor.LAUNCHES) == (before[0] + 1,
-                                                     before[1] + 1)
+    with launched(cuda_device) as n:
+        x = chol.chol_solve(At, bt)
+        L = chol_factor.chol_factor(At)
+    assert (n["chol_solve"], n["chol_factor"]) == (1, 1)
     assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(L).all())
     torch.testing.assert_close(x, chol.chol_solve_plain(At, bt),
                                rtol=2e-5, atol=2e-5)
@@ -150,12 +161,10 @@ def test_step_on_card_runs_the_kernel(cuda_device):
     d = mst.make_data(m, 64)
     qpos = d.qpos.clone()
     qpos[:, 2] = 0.1                         # start just above the floor
-    before = chol.LAUNCHES, newton_solve.LAUNCHES
-    # the eager rollout: a graph replay runs without the wrappers
-    d = rollout_eager(m, d.replace(qpos=qpos), 20)
-    torch.cuda.synchronize()
-    assert chol.LAUNCHES - before[0] == 2 * 20
-    assert newton_solve.LAUNCHES - before[1] == 20
+    with launched(cuda_device) as n:
+        d = rollout_eager(m, d.replace(qpos=qpos), 20)
+    assert n["chol_solve"] == 2 * 20
+    assert n["newton_solve"] == 20
     assert bool((d.qLD == 0).all())
     assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
     assert int(d.ncon.min()) > 0
@@ -181,10 +190,10 @@ def test_hull_sat_kernel_matches_plain_twin(V, F, K, lateral, cuda_device):
     tie-free random inputs."""
     rng = np.random.default_rng(0)
     pts, planes, mask, slack = _hull_inputs(rng, 1000, V, F, cuda_device)
-    before = hull_sat.LAUNCHES
-    out = hull_sat.hull_ref_face_depth(pts, planes, K, mask, lateral, slack)
-    torch.cuda.synchronize()
-    assert hull_sat.LAUNCHES == before + 1
+    with launched(cuda_device) as n:
+        out = hull_sat.hull_ref_face_depth(pts, planes, K, mask, lateral,
+                                           slack)
+    assert n["hull_ref_face_depth"] == 1
     ref = hull_sat.hull_ref_face_depth_plain(pts, planes, K, mask, lateral,
                                              slack)
     torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-6)
@@ -201,10 +210,9 @@ def test_support_minmax_kernel_matches_plain_twin(C, V, cuda_device):
                         device=cuda_device)
     w = torch.tensor(rng.normal(size=(500, V, 3)), dtype=torch.float32,
                      device=cuda_device)
-    before = support_minmax.LAUNCHES
-    mn, mx = support_minmax.support_minmax(axes, w)
-    torch.cuda.synchronize()
-    assert support_minmax.LAUNCHES == before + 1
+    with launched(cuda_device) as n:
+        mn, mx = support_minmax.support_minmax(axes, w)
+    assert n["support_minmax"] == 1
     rn, rx = support_minmax.support_minmax_plain(axes, w)
     torch.testing.assert_close(mn, rn, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(mx, rx, rtol=1e-5, atol=1e-6)
@@ -242,12 +250,11 @@ def test_mtv_query_kernel_matches_plain_twin(V, E, F, cuda_device):
     likewise."""
     rng = np.random.default_rng(2)
     args = _mtv_inputs(rng, 1000, V, E, F, cuda_device)
-    before = mtv_query.LAUNCHES, support_minmax.LAUNCHES
-    dep, n = mtv_query.mtv_query(*args)
-    dep_s, n_s = manifold.mtv_staged(*args)
-    torch.cuda.synchronize()
-    assert mtv_query.LAUNCHES == before[0] + 1
-    assert support_minmax.LAUNCHES > before[1]
+    with launched(cuda_device) as k:
+        dep, n = mtv_query.mtv_query(*args)
+        dep_s, n_s = manifold.mtv_staged(*args)
+    assert k["mtv_query"] == 1
+    assert k["support_minmax"] > 0
     rd, rn = mtv_query.mtv_query_plain(*args)
     for d_, n_ in ((dep, n), (dep_s, n_s)):
         torch.testing.assert_close(d_, rd, rtol=1e-5, atol=2e-5)
@@ -335,10 +342,9 @@ def test_mtv_query_kernel_big_tables(case, N, live, cuda_device):
     lanes with the bighull step's pattern (a few live among empty slots)
     and with every lane live."""
     args, rd, rn, empty = _big_batch(case, N, live, cuda_device)
-    before = mtv_query.LAUNCHES
-    dep, n = mtv_query.mtv_query(*args)
-    torch.cuda.synchronize()
-    assert mtv_query.LAUNCHES == before + 1
+    with launched(cuda_device) as k:
+        dep, n = mtv_query.mtv_query(*args)
+    assert k["mtv_query"] == 1
     assert torch.equal(dep[empty], rd[empty])
     assert torch.equal(n[empty], rn[empty])
     assert bool(torch.isfinite(dep[~empty]).all())
@@ -432,10 +438,9 @@ def test_support_minmax_kernel_every_layout(V, cuda_device):
     for C in SUPPORT_WIDTHS:
         axes = torch.tensor(rng.normal(size=(N, C, 3)), dtype=torch.float32,
                             device=cuda_device)
-        before = support_minmax.LAUNCHES
-        mn, mx = support_minmax.support_minmax(axes, w)
-        torch.cuda.synchronize()
-        assert support_minmax.LAUNCHES == before + 1
+        with launched(cuda_device) as n:
+            mn, mx = support_minmax.support_minmax(axes, w)
+        assert n["support_minmax"] == 1
         rn, rx = support_minmax.support_minmax_plain(axes, w)
         assert torch.equal(mn, rn) and torch.equal(mx, rx), (C, V)
 
@@ -466,17 +471,14 @@ def test_manip_rollout_on_card_runs_the_collision_kernels(cuda_device):
     d = mst.make_data(m, 64)
     phase = torch.tensor(np.random.default_rng(1).uniform(0, 6.28, (64, m.nu)),
                          dtype=torch.float32, device=cuda_device)
-    before = (hull_sat.LAUNCHES, mtv_query.LAUNCHES, chol.LAUNCHES,
-              newton_solve.LAUNCHES)
-    # the eager rollout: a graph replay runs without the wrappers
-    d = rollout_eager(m, d, 20,
-                      ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
-                                                   + phase))
-    torch.cuda.synchronize()
-    assert hull_sat.LAUNCHES - before[0] == 2 * 20
-    assert mtv_query.LAUNCHES - before[1] == 20
-    assert chol.LAUNCHES - before[2] == 2 * 20
-    assert newton_solve.LAUNCHES - before[3] == 20
+    with launched(cuda_device) as n:
+        d = rollout_eager(m, d, 20,
+                          ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
+                                                       + phase))
+    assert n["hull_ref_face_depth"] == 2 * 20
+    assert n["mtv_query"] == 20
+    assert n["chol_solve"] == 2 * 20
+    assert n["newton_solve"] == 20
     assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())
     pos = torch.stack([d.qpos[:, 6 + 7 * i:9 + 7 * i] for i in range(6)], 1)
     assert bool((pos[..., :2].abs() < 0.34).all() & (pos[..., 2] > 0).all())
@@ -494,10 +496,9 @@ def test_chol_factor_kernel_matches_plain_twin(N, n, cuda_device):
     rng = np.random.default_rng(n)
     A = torch.tensor(_spd_batch(rng, N, n), dtype=torch.float32,
                      device=cuda_device)
-    before = chol_factor.LAUNCHES
-    L = chol_factor.chol_factor(A)
-    torch.cuda.synchronize()
-    assert chol_factor.LAUNCHES == before + 1
+    with launched(cuda_device) as n:
+        L = chol_factor.chol_factor(A)
+    assert n["chol_factor"] == 1
     assert bool((torch.triu(L, 1) == 0).all())
     torch.testing.assert_close(L, chol_factor.chol_factor_plain(A),
                                rtol=2e-5, atol=2e-5)
@@ -523,18 +524,18 @@ def test_chol_factor_kernel_stiff_and_batched(cuda_device):
 @pytest.mark.cuda
 def test_chol_factor_wrapper_rejects_what_it_cannot_take(cuda_device):
     A = torch.eye(3, device=cuda_device).expand(2, 3, 3)
-    before = chol_factor.LAUNCHES
-    with pytest.raises(ValueError):                     # not contiguous
-        chol_factor.chol_factor(A)
-    with pytest.raises(TypeError):                      # not float32
-        chol_factor.chol_factor(A.double().contiguous())
-    with pytest.raises(ValueError):                     # n < 1
-        chol_factor.chol_factor(torch.ones(1, 0, 0, device=cuda_device))
-    with pytest.raises(ValueError):                     # not square
-        chol_factor.chol_factor(torch.ones(2, 3, 4, device=cuda_device))
-    with pytest.raises(ValueError):                     # a CPU tensor
-        chol_factor.chol_factor_cuda(torch.eye(3)[None])
-    assert chol_factor.LAUNCHES == before
+    with launched(cuda_device) as n:
+        with pytest.raises(ValueError):                 # not contiguous
+            chol_factor.chol_factor(A)
+        with pytest.raises(TypeError):                  # not float32
+            chol_factor.chol_factor(A.double().contiguous())
+        with pytest.raises(ValueError):                 # n < 1
+            chol_factor.chol_factor(torch.ones(1, 0, 0, device=cuda_device))
+        with pytest.raises(ValueError):                 # not square
+            chol_factor.chol_factor(torch.ones(2, 3, 4, device=cuda_device))
+        with pytest.raises(ValueError):                 # a CPU tensor
+            chol_factor.chol_factor_cuda(torch.eye(3)[None])
+    assert n["chol_factor"] == 0
 
 
 @pytest.mark.cuda
@@ -551,10 +552,9 @@ def test_face_sat_kernel_matches_plain_twin(V, F, K, cuda_device):
         pts[::4, V - 1] = pts[::4, 2]
         mask[::4, V - 1] = mask[::4, 2] = 1.0
         mask[1] = 0.0
-        before = face_sat.LAUNCHES
-        out = face_sat.face_sat_depth(pts, planes, mask, K)
-        torch.cuda.synchronize()
-        assert face_sat.LAUNCHES == before + 1
+        with launched(cuda_device) as n:
+            out = face_sat.face_sat_depth(pts, planes, mask, K)
+        assert n["face_sat_depth"] == 1
         ref = face_sat.face_sat_depth_plain(pts, planes, mask, K)
         assert out[1].dtype == torch.int32
         assert bool((out[1] == ref[1]).all())
@@ -582,11 +582,10 @@ def test_sat_kernels_edge_cases(case, cuda_device):
     plane within 1e-6 + 1e-5 relative, the band of the random cases above."""
     pts, planes, mask, slack, K = _sat_case(case, cuda_device)
     for lateral in (False, True):
-        before = hull_sat.LAUNCHES
-        out = hull_sat.hull_ref_face_depth(pts, planes, K, mask, lateral,
-                                           slack)
-        torch.cuda.synchronize()
-        assert hull_sat.LAUNCHES == before + 1
+        with launched(cuda_device) as n:
+            out = hull_sat.hull_ref_face_depth(pts, planes, K, mask, lateral,
+                                               slack)
+        assert n["hull_ref_face_depth"] == 1
         ref = hull_sat.hull_ref_face_depth_plain(pts, planes, K, mask,
                                                  lateral, slack)
         assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
@@ -594,10 +593,9 @@ def test_sat_kernels_edge_cases(case, cuda_device):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     vm = torch.ones(pts.shape[:-1], device=cuda_device) if mask is None \
         else mask
-    before = face_sat.LAUNCHES
-    out = face_sat.face_sat_depth(pts, planes, vm, K)
-    torch.cuda.synchronize()
-    assert face_sat.LAUNCHES == before + 1
+    with launched(cuda_device) as n:
+        out = face_sat.face_sat_depth(pts, planes, vm, K)
+    assert n["face_sat_depth"] == 1
     ref = face_sat.face_sat_depth_plain(pts, planes, vm, K)
     assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
     for a, b in ((out[0], ref[0]), (out[3], ref[3])):
@@ -609,19 +607,20 @@ def test_face_sat_wrapper_rejects_what_it_cannot_take(cuda_device):
     pts = torch.zeros(4, 8, 3, device=cuda_device)
     planes = torch.zeros(4, 12, 4, device=cuda_device)
     mask = torch.ones(4, 8, device=cuda_device)
-    before = face_sat.LAUNCHES
-    with pytest.raises(TypeError):                      # not float32
-        face_sat.face_sat_depth(pts.double(), planes.double(), mask.double())
-    with pytest.raises(ValueError):                     # K > V
-        face_sat.face_sat_depth(pts, planes, mask, 9)
-    with pytest.raises(ValueError):                     # mask shape
-        face_sat.face_sat_depth(pts, planes, mask[:, :7])
-    with pytest.raises(ValueError):                     # not contiguous
-        face_sat.face_sat_depth(pts.transpose(0, 1).contiguous()
-                                .transpose(0, 1), planes, mask)
-    with pytest.raises(ValueError):                     # a CPU tensor
-        face_sat.face_sat_depth_cuda(pts.cpu(), planes.cpu(), mask.cpu())
-    assert face_sat.LAUNCHES == before
+    with launched(cuda_device) as n:
+        with pytest.raises(TypeError):                  # not float32
+            face_sat.face_sat_depth(pts.double(), planes.double(),
+                                    mask.double())
+        with pytest.raises(ValueError):                 # K > V
+            face_sat.face_sat_depth(pts, planes, mask, 9)
+        with pytest.raises(ValueError):                 # mask shape
+            face_sat.face_sat_depth(pts, planes, mask[:, :7])
+        with pytest.raises(ValueError):                 # not contiguous
+            face_sat.face_sat_depth(pts.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), planes, mask)
+        with pytest.raises(ValueError):                 # a CPU tensor
+            face_sat.face_sat_depth_cuda(pts.cpu(), planes.cpu(), mask.cpu())
+    assert n["face_sat_depth"] == 0
 
 
 @pytest.mark.cuda
@@ -634,16 +633,13 @@ def test_precise_rollout_on_card_factors_once_per_step(cuda_device):
     d = mst.make_data(m, 32)
     phase = torch.tensor(np.random.default_rng(1).uniform(0, 6.28, (32, m.nu)),
                          dtype=torch.float32, device=cuda_device)
-    before = chol_factor.LAUNCHES, hull_sat.LAUNCHES, face_sat.LAUNCHES
-    # the eager rollout: a graph replay runs without the wrappers, which
-    # count only its warm-up call and its capture
-    d = rollout_eager(m, d, 20,
-                      ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
-                                                   + phase))
-    torch.cuda.synchronize()
-    assert chol_factor.LAUNCHES - before[0] == 20
-    assert hull_sat.LAUNCHES - before[1] == 2 * 20
-    assert face_sat.LAUNCHES == before[2]          # no step calls it
+    with launched(cuda_device) as n:
+        d = rollout_eager(m, d, 20,
+                          ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
+                                                       + phase))
+    assert n["chol_factor"] == 20
+    assert n["hull_ref_face_depth"] == 2 * 20
+    assert n["face_sat_depth"] == 0                # no step calls it
     torch.testing.assert_close(d.qLD @ d.qLD.transpose(-1, -2), d.qM,
                                rtol=1e-4, atol=1e-5)
     assert d.sensordata.shape == (32, 31)
@@ -681,16 +677,14 @@ def test_terrain_rollout_on_card_runs_the_kernels(cuda_device):
     phase = torch.tensor(np.random.default_rng(1).uniform(0, 6.28, (64, m.nu)),
                          dtype=torch.float32, device=cuda_device)
     cr = m.actuator_ctrlrange
-    before = (hull_sat.LAUNCHES, mtv_query.LAUNCHES, chol.LAUNCHES,
-              newton_solve.LAUNCHES)
-    d = rollout_eager(m, d, 20, ctrl_fn=lambda d_: cr[:, 0] + (
-        cr[:, 1] - cr[:, 0]) * (0.5 + 0.5 * torch.sin(
-            4.0 * d_.time[:, None] + phase)))
-    torch.cuda.synchronize()
-    assert hull_sat.LAUNCHES - before[0] > 0
-    assert mtv_query.LAUNCHES - before[1] == 20
-    assert chol.LAUNCHES - before[2] >= 2 * 20
-    assert newton_solve.LAUNCHES - before[3] == 20
+    with launched(cuda_device) as n:
+        d = rollout_eager(m, d, 20, ctrl_fn=lambda d_: cr[:, 0] + (
+            cr[:, 1] - cr[:, 0]) * (0.5 + 0.5 * torch.sin(
+                4.0 * d_.time[:, None] + phase)))
+    assert n["hull_ref_face_depth"] > 0
+    assert n["mtv_query"] == 20
+    assert n["chol_solve"] >= 2 * 20
+    assert n["newton_solve"] == 20
     for v in (d.qpos, d.qvel, d.ten_length, d.ten_J, d.sensordata):
         assert bool(torch.isfinite(v).all())
     act = d.act[:, :6]
@@ -745,12 +739,12 @@ def test_sharded_rollout_on_one_card_matches_unsharded(cuda_device):
     d = _dropped_boxes(m, 256)
     mesh = pmesh.make_env_mesh(["cuda:0"] * 4)
     mR = pmesh.replicate_model(m, mesh)
-    before = chol.LAUNCHES
-    out = pmesh.make_sharded_rollout(mR, mesh, 50)(
-        mR, pmesh.shard_batch(d, mesh))
-    # one step graph a shard: the wrappers count each shard's warm-up call
-    # and capture (at least two solves each), not the replays
-    assert chol.LAUNCHES - before >= 4 * 2 * 2
+    with launched(cuda_device) as n:
+        out = pmesh.make_sharded_rollout(mR, mesh, 50)(
+            mR, pmesh.shard_batch(d, mesh))
+    # one step graph a shard, captured with the counts in it: each
+    # shard's 50 replayed steps make at least two solves each
+    assert n["chol_solve"] >= 4 * 50 * 2
     ref = mst.rollout(m, d, 50)
     torch.testing.assert_close(out.gather().qpos, ref.qpos, rtol=0,
                                atol=5e-4)
@@ -905,9 +899,9 @@ def test_replay_launches_counted_on_card(cuda_device):
     """runtime/profiler.counting: the replays of a manip step captured
     while counts are kept add the hand-written kernels' launches on the
     card (a WHILE body's once an iteration): as many as the eager steps
-    from the same state make, by the wrappers' LAUNCHES and on the card;
-    the WHILE predicate runs in the replays only.  Outside the block
-    nothing counts, and a graph captured there adds nothing."""
+    from the same state make; the WHILE predicate runs in the replays
+    only.  Outside the block nothing counts, and a graph captured there
+    adds nothing."""
     from mujoco_sim_tpu_torch.parallel.rollout import step_graph
     from mujoco_sim_tpu_torch.utils import graph
     m = mst.put_model(mst.load_model(str(FIXTURES / "manip_bin6.xml")))
@@ -925,14 +919,11 @@ def test_replay_launches_counted_on_card(cuda_device):
             c0 = profiler.counts(cuda_device)
             g.run(m, d, n=4)
             c1 = profiler.counts(cuda_device)
-            mods = dict(chol_solve=chol, hull_ref_face_depth=hull_sat,
-                        mtv_query=mtv_query, newton_solve=newton_solve)
-            before = {k: mod.LAUNCHES for k, mod in mods.items()}
             rollout_eager(m, d, 4, ctrl_fn=ctrl_fn)
             c2 = profiler.counts(cuda_device)
-        for k, mod in mods.items():
-            assert (c1[k] - c0[k] == mod.LAUNCHES - before[k]
-                    == c2[k] - c1[k] > 0), k
+        for k in ("chol_solve", "hull_ref_face_depth", "mtv_query",
+                  "newton_solve"):
+            assert c1[k] - c0[k] == c2[k] - c1[k] > 0, k
         assert c1["newton_solve"] - c0["newton_solve"] == 4  # one a step
         assert c1["graph_loop"] > c0["graph_loop"]
         assert c2["graph_loop"] == c1["graph_loop"]
@@ -947,8 +938,9 @@ def test_nested_while_nodes_captured(cuda_device):
     """A while loop inside a while loop's body, as the line search runs
     inside a Newton iteration, captured as nested WHILE nodes: the replay
     equals the eager loops on two inputs, with per-env trip counts that
-    differ, and each node launches the predicate kernel twice at
-    capture."""
+    differ.  The nodes are made once, at the one capture, and each
+    replay's predicate launches are counted on the card: one a node and
+    one an iteration, as many iterations as the eager loops ran."""
     from mujoco_sim_tpu_torch.ops import loops
     from mujoco_sim_tpu_torch.utils.graph import StepGraph
     rng = np.random.default_rng(0)
@@ -957,25 +949,36 @@ def test_nested_while_nodes_captured(cuda_device):
     lim = torch.tensor(rng.integers(0, 30, 300), dtype=torch.int32,
                        device=cuda_device)
 
+    iters = []          # the bodies' calls, "outer" or "inner"
+
     def fn(_, x, lim):
+        def inner(cc):
+            iters.append("inner")
+            return cc[0] * 0.5, cc[1] + 1
+
         def body(c):
+            iters.append("outer")
             x, i = c
             y, k = loops.while_loop(
-                lambda cc: (cc[0].sum(-1) > 0.01) & (cc[1] < 5),
-                lambda cc: (cc[0] * 0.5, cc[1] + 1),
+                lambda cc: (cc[0].sum(-1) > 0.01) & (cc[1] < 5), inner,
                 (x + 1.0, torch.zeros_like(i)))
             return y + k[:, None].float(), i + 1
         return loops.while_loop(lambda c: c[1] < lim, body,
                                 (x, torch.zeros_like(lim)))
 
     g = StepGraph(fn)
-    before = loops.LAUNCHES
-    for x in (x0, 2.0 * x0):
-        got, ref = g(None, x, lim), fn(None, x, lim)
-        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    want = 0
+    with launched(cuda_device) as n:
+        for x in (x0, 2.0 * x0):
+            got = g(None, x, lim)
+            iters.clear()
+            ref = fn(None, x, lim)
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+            # the outer node, and an inner node each outer iteration
+            want += 1 + 2 * iters.count("outer") + iters.count("inner")
     assert torch.equal(got[1], lim)
     assert g.captures == 1 and g.replays == 2
-    assert loops.LAUNCHES - before == 4
+    assert n["graph_loop"] == want
 
 
 @pytest.mark.cuda
@@ -1174,15 +1177,15 @@ def test_newton_kernel_edge_cases(case, cuda_device):
         0 if case == "j_past_shared_memory" else 1)
     opt = types.SimpleNamespace(tolerance=1e-8, ls_tolerance=0.01,
                                 solver_iterations=cap, ls_iterations=20)
-    before = newton_solve.LAUNCHES
-    ak, xk, ik, lk = newton_solve.newton_solve_cuda(
-        M, a_s, J, D, rows.efc_type, rows.efc_frictionloss,
-        rows.efc_floss_active, a, x, cost, opt.tolerance, opt.ls_tolerance,
-        opt.solver_iterations, opt.ls_iterations)
+    with launched(cuda_device) as n:
+        ak, xk, ik, lk = newton_solve.newton_solve_cuda(
+            M, a_s, J, D, rows.efc_type, rows.efc_frictionloss,
+            rows.efc_floss_active, a, x, cost, opt.tolerance,
+            opt.ls_tolerance, opt.solver_iterations, opt.ls_iterations)
+    assert n["newton_solve"] == 1
     ap, xp, ip = solver._newton_lockstep(opt, rows, M, a_s, J, D, a, x, cost)
     a64, _, i64 = _lockstep64(opt, rows, M, a_s, J, D, a, x, cost)
     torch.cuda.synchronize()
-    assert newton_solve.LAUNCHES == before + 1
     if case == "no_iteration":
         assert torch.equal(ak, a) and torch.equal(xk, x)
         assert int(ik.abs().max()) == int(lk.abs().max()) == 0
@@ -1276,9 +1279,8 @@ def test_lockstep_scenes_launch_no_newton_kernel(scene, cuda_device):
     iteration, finite steps."""
     m = mst.put_model(mst.load_model(str(FIXTURES / scene)))
     d = _dropped_boxes(m, 32)
-    before = newton_solve.LAUNCHES, chol.LAUNCHES
-    d = rollout_eager(m, d, 5)
-    torch.cuda.synchronize()
-    assert newton_solve.LAUNCHES == before[0]
-    assert chol.LAUNCHES - before[1] > 2 * 5
+    with launched(cuda_device) as n:
+        d = rollout_eager(m, d, 5)
+    assert n["newton_solve"] == 0
+    assert n["chol_solve"] > 2 * 5
     assert bool(torch.isfinite(d.qpos).all() & torch.isfinite(d.qvel).all())

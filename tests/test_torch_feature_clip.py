@@ -62,10 +62,11 @@ def test_wrapper_takes_the_twin_on_the_cpu(case):
     none and a positive certificate; a lane not enabled the miss tuple."""
     b, rows = kernel_cases.clip_case((case,))
     args = _tensors(b)
-    before = manifold.LAUNCHES
-    got = manifold.feature_clip(*args)
+    with profiler.counting("cpu"):
+        before = profiler.counts("cpu")["feature_clip"]
+        got = manifold.feature_clip(*args)
+        assert profiler.counts("cpu")["feature_clip"] == before
     ref = manifold.feature_clip_plain(*args)
-    assert manifold.LAUNCHES == before
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     dist, pos, n, ok, sepd = got
@@ -162,10 +163,10 @@ def test_deep_lanes_count_the_enabled_slots():
 def test_kernel_on_the_hand_built_lanes(cuda_device):
     b, _ = kernel_cases.clip_case()
     args = _tensors(b, cuda_device)
-    before = manifold.LAUNCHES
-    got = manifold.feature_clip(*args)
-    torch.cuda.synchronize()
-    assert manifold.LAUNCHES == before + 1
+    with profiler.counting(cuda_device):
+        before = profiler.counts(cuda_device)["feature_clip"]
+        got = manifold.feature_clip(*args)
+        assert profiler.counts(cuda_device)["feature_clip"] == before + 1
     live, ties = hold(args, got)
     assert live == 9 and ties == 0
 
@@ -219,15 +220,16 @@ def test_kernel_on_the_manip_lanes(cuda_device):
         return real(*a)
 
     manifold.feature_clip = clip
-    before = manifold.LAUNCHES
     try:
-        rollout_eager(m, mst.make_data(m, 64), 40,
-                      ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
-                                                   + phase))
+        with profiler.counting(cuda_device):
+            before = profiler.counts(cuda_device)["feature_clip"]
+            rollout_eager(m, mst.make_data(m, 64), 40,
+                          ctrl_fn=lambda d_: torch.sin(4.0 * d_.time[:, None]
+                                                       + phase))
+            clips = profiler.counts(cuda_device)["feature_clip"] - before
     finally:
         manifold.feature_clip = real
-    torch.cuda.synchronize()
-    assert manifold.LAUNCHES - before == calls[0] == 40
+    assert clips == calls[0] == 40
     live = ties = 0
     for args in kept:
         got = manifold.feature_clip_cuda(*args)

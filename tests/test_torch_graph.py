@@ -17,7 +17,7 @@ import torch
 from mujoco_sim_tpu_torch import engine
 from mujoco_sim_tpu_torch.control import controllers as C
 from mujoco_sim_tpu_torch.models.compile import load_model
-from mujoco_sim_tpu_torch.ops import loops
+from mujoco_sim_tpu_torch.ops import cuda_build, loops
 from mujoco_sim_tpu_torch.parallel import egress, mesh as pmesh
 from mujoco_sim_tpu_torch.parallel.rollout import RECURRENT, rollout
 from mujoco_sim_tpu_torch.runtime.loop import SimLoop
@@ -356,17 +356,58 @@ def _globals_in_csrc():
 
 def test_replay_counts_name_every_kernel_in_csrc():
     """chip_smoke.py counts the hand-written kernels of each replayed step
-    by the names of their __global__ functions (REPLAY_KERNELS): each
-    __global__ in csrc/ is named there under a wrapper's count, and each
-    name there is a __global__, so a kernel added later cannot drop out of
-    the replay counts."""
+    by the names of their __global__ functions, as ops/cuda_build.KERNELS
+    lists them (REPLAY_KERNELS): each __global__ in csrc/ is named there
+    under a kernel's launch count, and each name there is a __global__, so
+    a kernel added later cannot drop out of the replay counts."""
+    from mujoco_sim_tpu_torch.runtime import profiler
     cs = _chip_smoke()
     found = _globals_in_csrc()
     assert len(found) >= 9, found
     named = {g for gs in cs.REPLAY_KERNELS.values() for g in gs}
     assert set(found) <= named, sorted(set(found) - named)
     assert named <= set(found), sorted(named - set(found))
-    assert set(cs.REPLAY_KERNELS) == set(cs._counts()) | {"graph_loop"}
+    assert set(cs.REPLAY_KERNELS) == set(profiler.LAUNCH_COUNTS)
+
+
+@pytest.mark.parametrize("name", sorted(cuda_build.KERNELS))
+def test_kernel_table_row_names_what_exists(name):
+    """A row of ops/cuda_build.KERNELS: its source and the shared headers
+    exist, each function it names is a __global__ of its own source, and
+    its launch count is a slot of the recorder's table."""
+    from mujoco_sim_tpu_torch.runtime import profiler
+    row = cuda_build.KERNELS[name]
+    assert pathlib.Path(cuda_build.source_path(name)).is_file()
+    for h in cuda_build.HEADERS:
+        assert (pathlib.Path(cuda_build.CSRC_DIR) / h).is_file(), h
+    found = _globals_in_csrc()
+    assert row.functions
+    for g in row.functions:
+        assert found.get(g) == row.source, g
+    assert row.slot in profiler.SLOTS
+
+
+@pytest.mark.parametrize("rc", [0, 2, 700])
+def test_launch_errors_name_the_entry_and_the_code(rc, monkeypatch):
+    """cuda_build.check raises on a cudaError other than 0, naming the C
+    entry and the code, and passes on 0; launch checks what its entry
+    returns (the current device and stream stubbed: no card here)."""
+    def chol_solve_f32(*args):
+        return rc
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    calls = (lambda: cuda_build.check(rc, "chol_solve_f32"),
+             lambda: cuda_build.launch(torch.device("cuda", 0),
+                                       chol_solve_f32, 1, 2))
+    for call in calls:
+        if rc == 0:
+            assert call() is None
+        else:
+            with pytest.raises(RuntimeError, match=(
+                    f"^chol_solve_f32 failed: cudaError {rc}$")):
+                call()
 
 
 def test_replay_counts_read_demangled_kernel_names():

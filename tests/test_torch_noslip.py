@@ -106,13 +106,16 @@ def test_factor_chol_takes_the_twin_on_cpu_tensors(scene):
     """smooth.factor_chol dispatches by device: on a CPU tensor it is
     ops/linalg.cholesky (the JAX package's factor_chol)."""
     from mujoco_sim_tpu.ops import smooth as jsmooth
-    from mujoco_sim_tpu_torch.ops import chol_factor, smooth
+    from mujoco_sim_tpu_torch.ops import smooth
+    from mujoco_sim_tpu_torch.runtime import profiler
     rng = np.random.default_rng(1)
     M = rng.standard_normal((5, 9, 9))
     A = M @ M.transpose(0, 2, 1) + 9 * np.eye(9)
-    before = chol_factor.LAUNCHES
-    L = smooth.factor_chol(torch.tensor(A))
-    assert chol_factor.LAUNCHES == before        # no kernel on the CPU
+    with profiler.counting("cpu"):
+        before = profiler.counts("cpu")["chol_factor"]
+        L = smooth.factor_chol(torch.tensor(A))
+        # no kernel on the CPU
+        assert profiler.counts("cpu")["chol_factor"] == before
     ref = jax.vmap(jsmooth.factor_chol)(jnp.asarray(A))
     np.testing.assert_allclose(L.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-12)
